@@ -1,0 +1,153 @@
+"""Connected-component label propagation: CUDA kernel + plain version.
+
+Counterpart of the JAX package's ``frontend/pallas_label.py``.  Contract of
+both versions: given
+
+* ``labels0`` (V, H) int32 — flat pixel index on segmentable pixels,
+  sentinel ``2**30`` elsewhere,
+* ``right`` (V, H) int32 0/1 — edge (i,j)↔(i,j+1 mod H), including the
+  H−1↔0 wrap,
+* ``down`` (V, H) int32 0/1 — edge (i,j)↔(i+1,j),
+
+return (V, H) int32 labels where every segmentable pixel carries the minimum
+flat index of its component and every other pixel the sentinel.  Edges only
+join segmentable pixels.
+
+:func:`propagate_labels` dispatches on where the tensor lies: a CUDA tensor
+goes to the hand-written union-find kernel (``csrc/label.cu``) or raises; a
+CPU tensor takes the plain version.  There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+Tensor = torch.Tensor
+
+SENTINEL = 2 ** 30
+
+launch_count = 0     # +1 per kernel launch made by propagate_labels_cuda
+
+
+def _shift(x: Tensor, s: int, dim: int, fill) -> Tensor:
+    """Value at index j becomes x[j-s] (s>0) with ``fill`` for j<s; s<0
+    shifts the other way."""
+    n = x.shape[dim]
+    if abs(s) >= n:
+        return torch.full_like(x, fill)
+    pad = torch.full_like(x.narrow(dim, 0, abs(s)), fill)
+    if s >= 0:
+        return torch.cat([pad, x.narrow(dim, 0, n - s)], dim)
+    return torch.cat([x.narrow(dim, -s, n + s), pad], dim)
+
+
+def _segmented_sweep(lab: Tensor, conn: Tensor, dim: int, reverse: bool,
+                     n_steps: int) -> Tensor:
+    """Segmented min-scan along ``dim`` via log-doubling.
+
+    ``conn[j]`` is True iff element j is edge-connected to its predecessor
+    (successor when ``reverse``) along the axis.
+    """
+    sgn = -1 if reverse else 1
+    g = conn
+    v = lab
+    for k in range(n_steps):
+        s = sgn * (1 << k)
+        v_sh = _shift(v, s, dim, SENTINEL)
+        v = torch.minimum(v, torch.where(g, v_sh, SENTINEL))
+        g = g & _shift(g, s, dim, False)
+    return v
+
+
+def propagate_labels_torch(labels0: Tensor, right: Tensor, down: Tensor,
+                           max_sweeps: int = 64) -> Tensor:
+    """Plain version: the fixed-point min-label flood in tensor ops.
+
+    Per sweep a segmented min-scan along rows forward/backward and columns
+    down/up, then the wrap-column min; repeated until no label changes or
+    ``max_sweeps`` further sweeps have run (one host read per sweep).
+    """
+    V, H = labels0.shape
+    row_steps = max(1, math.ceil(math.log2(H)))
+    col_steps = max(1, math.ceil(math.log2(V)))
+    right_b = right != 0
+    down_b = down != 0
+
+    wrap = right_b[:, H - 1]                       # column H-1 ↔ 0
+    inner = right_b.clone()
+    inner[:, H - 1] = False                        # scans do not wrap
+    conn_fwd = _shift(inner, 1, 1, False)          # j connected to j-1
+    conn_bwd = inner                               # j connected to j+1
+    conn_dn = _shift(down_b, 1, 0, False)          # i connected to i-1
+    conn_up = down_b.clone()                       # i connected to i+1
+    conn_up[V - 1] = False
+
+    def sweep(lab):
+        lab = _segmented_sweep(lab, conn_fwd, 1, False, row_steps)
+        lab = _segmented_sweep(lab, conn_bwd, 1, True, row_steps)
+        lab = _segmented_sweep(lab, conn_dn, 0, False, col_steps)
+        lab = _segmented_sweep(lab, conn_up, 0, True, col_steps)
+        mn = torch.minimum(lab[:, 0], lab[:, H - 1])
+        lab = lab.clone()
+        lab[:, 0] = torch.where(wrap, mn, lab[:, 0])
+        lab[:, H - 1] = torch.where(wrap, mn, lab[:, H - 1])
+        return lab
+
+    lab = sweep(labels0)
+    for _ in range(max_sweeps):
+        new = sweep(lab)
+        changed = bool(torch.any(new != lab).item())
+        lab = new
+        if not changed:
+            break
+    return lab
+
+
+def propagate_labels_cuda(labels0: Tensor, right: Tensor,
+                          down: Tensor) -> Tensor:
+    """Launch the union-find kernel (``csrc/label.cu``) on the current
+    stream.  Takes contiguous int32 (V, H) CUDA tensors on one device."""
+    global launch_count
+    from ..kernels import lib
+
+    if labels0.dim() != 2:
+        raise ValueError(f"labels0 must be (V, H), got {tuple(labels0.shape)}")
+    for name, t in (("labels0", labels0), ("right", right), ("down", down)):
+        if not t.is_cuda or t.device != labels0.device:
+            raise ValueError(f"{name} must be a CUDA tensor on "
+                             f"{labels0.device}, got {t.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.shape != labels0.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(labels0.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    V, H = labels0.shape
+    if V * H >= SENTINEL:
+        raise ValueError("image too large for the 2**30 sentinel")
+
+    parent = torch.empty_like(labels0)
+    out = torch.empty_like(labels0)
+    with torch.cuda.device(labels0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib().label_ccl(labels0.data_ptr(), right.data_ptr(),
+                              down.data_ptr(), parent.data_ptr(),
+                              out.data_ptr(), V, H, stream)
+    if err != 0:
+        raise RuntimeError(f"label_ccl launch failed: CUDA error {err}")
+    launch_count += 1
+    return out
+
+
+def propagate_labels(labels0: Tensor, right: Tensor, down: Tensor,
+                     max_sweeps: int = 64) -> Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors.
+
+    ``max_sweeps`` only bounds the plain version's flood; the kernel's
+    union-find needs no cap."""
+    if labels0.is_cuda:
+        return propagate_labels_cuda(labels0, right, down)
+    return propagate_labels_torch(labels0, right, down, max_sweeps)

@@ -1,0 +1,162 @@
+"""Full-pipeline orchestration — the deterministic replay loop.
+
+Replaces the reference's main program + channels + threads (``main.cpp:37-102``,
+``channel.h``): the whole 4-stage pipeline is one per-scan step function
+over a single ``SlamState``, and offline replay is a Python loop over it
+(single stream; multi-stream and multi-device replay are not ported yet).
+
+Cadence: odometry every scan; mapping every ``mapping_frequency_divider``
+scans (``featureAssociation.cpp:1432-1448``), decided on the host from the
+scan index (a plain Python ``int`` in this port's ``SlamState``); the fused
+10 Hz output pose (stage 4) is emitted every scan.
+
+Every entry point takes ``device=None`` meaning the CUDA card and raises if
+there is none; pass ``device="cpu"`` to run on the CPU.  A state keeps the
+device it was created on.  The keyframe cloud blocks of the state passed in
+are updated IN PLACE (``graph/keyframes.py``); everything else is
+functional.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.config import LegoLoamConfig
+from ..core.device import DeviceLike, resolve_device, stage
+from ..core.types import Container, RawScan
+from ..frontend.segmentation import image_projection
+from ..graph import keyframes
+from . import mapping as mapping_mod
+from . import odometry as odometry_mod
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class SlamState(Container):
+    odo: odometry_mod.OdometryState
+    mapping: mapping_mod.MappingState
+    scan_index: int          # host-side: decides the mapping cadence
+
+
+def init_state(cfg: LegoLoamConfig, device: DeviceLike = None) -> SlamState:
+    device = resolve_device(device)
+    return SlamState(
+        odo=odometry_mod.init_state(cfg, device),
+        mapping=mapping_mod.init_state(cfg, device),
+        scan_index=0)
+
+
+def _check_device(state: SlamState, device: torch.device) -> None:
+    have = state.odo.odom.device
+    if have.type != device.type or (
+            device.index is not None and have.index != device.index):
+        raise ValueError(f"state lives on {have}, but device={device} was "
+                         f"asked for")
+
+
+def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
+              device: DeviceLike = None):
+    """Process one scan through the full pipeline.
+
+    Returns (new_state, outputs) where outputs carries:
+      odom  — integrated scan-to-scan odometry pose (10 Hz),
+      fused — drift-corrected pose (stage-4 output, 10 Hz),
+      mapped — latest mapping pose (updates at 2 Hz),
+      kf_count / factor_count — per-scan observability counters,
+      loop_diag — (8,) loop-closure diagnostics (zeros: loop closure off).
+    """
+    device = resolve_device(device)
+    _check_device(state, device)
+    if raw.xyz.device != state.odo.odom.device:
+        raise ValueError(f"scan lives on {raw.xyz.device}, state on "
+                         f"{state.odo.odom.device}")
+
+    with stage("projection", device):
+        proj = image_projection(raw, cfg)
+    with stage("odometry", device):
+        odo_state, assoc = odometry_mod.odometry_step(state.odo, proj, cfg)
+
+    divider = cfg.mapping.mapping_frequency_divider
+    run_mapping = ((state.scan_index % divider) == (divider - 1)
+                   and not cfg.pipeline.odometry_only)
+
+    clouds = state.mapping.clouds
+    if run_mapping:
+        with stage("mapping", device):
+            meta, row, mapped, loop_diag = mapping_mod.mapping_step(
+                state.mapping.meta, clouds, assoc, cfg)
+            clouds = keyframes.apply_row(clouds, row)
+    else:
+        meta = state.mapping.meta
+        mapped = meta.aft_mapped
+        loop_diag = torch.zeros((8,), dtype=torch.float32,
+                                device=mapped.device)
+    map_state = mapping_mod.MappingState(meta=meta, clouds=clouds)
+
+    fused = mapping_mod.fuse_pose(map_state, assoc.odom)
+
+    # Re-anchor the odometry integration to the mapped pose after every
+    # mapping cycle.  The integrated odometry pose is only ever consumed
+    # RELATIVE to ``bef_mapped`` (predict_pose/fuse_pose compose
+    # ``aft ∘ rel(bef, odom)``), so this changes nothing mathematically —
+    # but an unanchored Euler integration random-walks its attitude
+    # without bound and the pitch=±90° gimbal singularity is an ABSORBING
+    # state of compose∘matrix_to_rpy.  Map-anchored attitude stays near
+    # truth, so the singularity is unreachable.  In odometry-only mode
+    # nothing runs mapping and the stream stays the pure integration
+    # (reference semantics).
+    if run_mapping:
+        odo_state = odo_state.replace(odom=mapped)
+        map_state = map_state.replace(
+            meta=map_state.meta.replace(bef_mapped=mapped))
+
+    new_state = SlamState(odo=odo_state, mapping=map_state,
+                          scan_index=state.scan_index + 1)
+    outputs = {
+        "odom": assoc.odom,
+        "fused": fused,
+        "mapped": mapped,
+        "kf_count": meta.kf_count,
+        "factor_count": meta.factor_count,
+        "loop_diag": loop_diag,
+    }
+    return new_state, outputs
+
+
+def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
+                cfg: LegoLoamConfig, device: DeviceLike = None):
+    """Resume replay from an existing :class:`SlamState`.
+
+    The chunked long-sequence and resume entry point: the
+    per-scan step only ever reads one scan, so the host can feed
+    fixed-shape CHUNKS and carry the state across calls.  Equal to one
+    whole-sequence :func:`replay` by construction (same step function).
+
+    Args: batched scans (N, P*3) / (N, P) / (N,) from
+    ``io.npz_io.pack_sequence`` on the state's device.
+
+    Returns (final_state, outputs dict of stacked per-scan tensors).
+    """
+    device = resolve_device(device)
+    outs = []
+    for i in range(xyz.shape[0]):
+        raw = RawScan(xyz=xyz[i].reshape(-1, 3), valid=valid[i],
+                      stamp=times[i])
+        state, out = slam_step(state, raw, cfg, device=device)
+        outs.append(out)
+    if not outs:
+        return state, {}
+    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def replay(xyz: Tensor, valid: Tensor, times: Tensor, cfg: LegoLoamConfig,
+           device: DeviceLike = None):
+    """Offline whole-sequence replay from a fresh state on ``device``.
+
+    Returns (final_state, outputs dict of (N, …) tensors)."""
+    device = resolve_device(device)
+    return replay_from(init_state(cfg, device), xyz, valid, times, cfg,
+                       device=device)
