@@ -211,9 +211,16 @@ def label_phase(scans, cfg, dev):
         lambda: cuda_label.propagate_labels_torch(lab0, right, down, 64))
     big_ms = time_ms(lambda: cuda_label.propagate_labels_cuda(
         *cases["hdl64_scan"]))
-    n_bytes = 4 * V * H * 4                    # 3 int32 images in, 1 out
-    n_ops = 8 * V * H                          # a few integer ops a pixel
-    bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+    big_plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(
+        *cases["hdl64_scan"], 64))
+
+    def bound_ms(n_pixels):
+        n_bytes = 4 * n_pixels * 4             # 3 int32 images in, 1 out
+        n_ops = 8 * n_pixels                   # a few integer ops a pixel
+        return max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+
+    n_bytes = 4 * V * H * 4
+    bound = bound_ms(V * H)
     entry = {
         "name": "label_ccl", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/label.cu",
@@ -222,10 +229,11 @@ def label_phase(scans, cfg, dev):
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
         "bound_how": f"{n_bytes} bytes (3 int32 images read, 1 written) / "
                      f"3.35e12 B/s; three dependent launches dominate",
-        "hdl64_ms": big_ms}
+        "hdl64": {"shape": [Vb, Hb], "ms": big_ms, "plain_ms": big_plain_ms,
+                  "bound_ms": bound_ms(Vb * Hb)}}
     emit({"phase": "kernel", "kernel": "label_ccl", "cases": report,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-          "bound_ms": bound, "hdl64_64x2083_kernel_ms": big_ms})
+          "bound_ms": bound, "hdl64_scan": entry["hdl64"]})
     return entry
 
 
