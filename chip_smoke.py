@@ -21,10 +21,17 @@ card.  It
 7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
 
-Every phase raises on failure; nothing is caught and skipped.  Times are
-medians of CUDA-event timings after warm-up.  ``bound_ms`` is the larger of
-bytes / 3.35 TB/s and operations / 67 TFLOP/s (float32 outside the tensor
-cores), the published peaks of an H100 SXM at its full power limit.
+Every phase raises on failure; nothing is caught and skipped.  A kernel
+gets two times: ``ms``, the device time of one launch (``DEVICE_LAUNCHES``
+launches between one pair of CUDA events, once issued eagerly and once
+replayed from a CUDA graph; the smaller of the two per-launch times, since
+the eager loop cannot go below the host's enqueue rate), and ``call_ms``,
+one eager wrapper call between a pair of events (what a caller that waits
+for the result pays, enqueue included).  ``launch_floor_ms`` holds the same
+times for an empty kernel.  ``plain_ms`` and ``library_ms`` are per-call
+times.  ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations /
+67 TFLOP/s (float32 outside the tensor cores), the published peaks of an
+H100 SXM at its full power limit.
 """
 
 from __future__ import annotations
@@ -46,14 +53,19 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FAR = 1e30
 PLAIN_RANK_TOL = 2e-3      # m^2, see check_knn
+TIME_KEYS = ("ms", "ms_loop", "ms_graph", "call_ms")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+DEVICE_LAUNCHES = 100      # launches between one pair of events
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+    """Median CUDA-event time of ONE eager call of ``fn()`` in milliseconds:
+    for a kernel of a few microseconds this is the wrapper's enqueue cost."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -67,6 +79,50 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _events_ms(run, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int = DEVICE_LAUNCHES, reps: int = 5) -> dict:
+    """Device time of one launch of ``fn()`` on inputs already resident:
+    ``n`` launches between one pair of events, divided by ``n`` — issued
+    eagerly (``ms_loop``; bounded below by the host's enqueue rate) and
+    captured once in a CUDA graph and replayed (``ms_graph``; no host work
+    between launches).  ``ms`` is the smaller."""
+    def loop():
+        for _ in range(n):
+            fn()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ms_loop = _events_ms(loop, reps) / n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loop()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms_graph = _events_ms(graph.replay, reps) / n
+    del graph
+    return {"ms": min(ms_loop, ms_graph), "ms_loop": ms_loop,
+            "ms_graph": ms_graph, "launches_timed": n}
+
+
+def timed(fn) -> dict:
+    """``device_ms`` of ``fn`` plus ``call_ms``, one eager call."""
+    out = device_ms(fn)
+    out["call_ms"] = time_ms(fn)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -84,6 +140,20 @@ def device_phase() -> str:
           "cuda": torch.version.cuda,
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32})
     return card
+
+
+def launch_floor_phase() -> dict:
+    """What one launch of an empty kernel costs through the ctypes route."""
+    from lego_loam_tpu_torch import kernels
+    noop = kernels.lib().noop_launch
+
+    def fn():
+        err = noop(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"noop launch failed: CUDA error {err}")
+    floor = timed(fn)
+    emit({"phase": "launch_floor", "kernel": "noop (csrc/noop.cu)", **floor})
+    return floor
 
 
 # --------------------------------------------------------------------------
@@ -168,7 +238,7 @@ def hand_made_label_cases(V, H, dev):
     return cases
 
 
-def label_phase(scans, cfg, dev):
+def label_phase(scans, cfg, dev, floor):
     from lego_loam_tpu_torch.core.config import hdl64
     from lego_loam_tpu_torch.frontend import cuda_label
     from lego_loam_tpu_torch.io.synthetic import make_sequence
@@ -206,10 +276,10 @@ def label_phase(scans, cfg, dev):
             comps["all_one"]) == (2, 1, 0, 1), comps
 
     lab0, right, down = cases[f"scan{len(scans) // 2}"]
-    ms = time_ms(lambda: cuda_label.propagate_labels_cuda(lab0, right, down))
+    t = timed(lambda: cuda_label.propagate_labels_cuda(lab0, right, down))
     plain_ms = time_ms(
         lambda: cuda_label.propagate_labels_torch(lab0, right, down, 64))
-    big_ms = time_ms(lambda: cuda_label.propagate_labels_cuda(
+    big_t = timed(lambda: cuda_label.propagate_labels_cuda(
         *cases["hdl64_scan"]))
     big_plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(
         *cases["hdl64_scan"], 64))
@@ -225,14 +295,15 @@ def label_phase(scans, cfg, dev):
         "name": "label_ccl", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/label.cu",
         "replaces": "lego_loam_tpu/frontend/pallas_label.py:145",
-        "shape": [V, H], "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "shape": [V, H], "max_abs_err": 0, **t, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "launch_floor_ms": floor,
         "bound_how": f"{n_bytes} bytes (3 int32 images read, 1 written) / "
                      f"3.35e12 B/s; three dependent launches dominate",
-        "hdl64": {"shape": [Vb, Hb], "ms": big_ms, "plain_ms": big_plain_ms,
+        "hdl64": {"shape": [Vb, Hb], **big_t, "plain_ms": big_plain_ms,
                   "bound_ms": bound_ms(Vb * Hb)}}
     emit({"phase": "kernel", "kernel": "label_ccl", "cases": report,
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          **t, "plain_ms": plain_ms, "library_ms": None,
           "bound_ms": bound, "hdl64_scan": entry["hdl64"]})
     return entry
 
@@ -322,7 +393,7 @@ def library_knn(q, qv, c, cv):
     return torch.topk(d, 5, dim=-1, largest=False)
 
 
-def knn_phase(dev):
+def knn_phase(dev, floor):
     from lego_loam_tpu_torch.match import cuda_knn
     # the pipeline's own shapes first (per-keyframe scan caps against the
     # map caps), then the larger ones
@@ -334,7 +405,7 @@ def knn_phase(dev):
         case = knn_case(Q, M, 100 + k, dev)
         rep = check_knn(name, *case)
         q, qv, c, cv = case
-        rep["kernel_ms"] = time_ms(lambda: cuda_knn.knn5_cuda(*case))
+        rep.update(timed(lambda: cuda_knn.knn5_cuda(*case)))
         rep["plain_ms"] = time_ms(lambda: cuda_knn.knn5_torch(*case))
         rep["library_ms"] = time_ms(lambda: library_knn(*case))
         n_bytes = Q * 12 + Q + M * 12 + M + Q * 5 * 8
@@ -372,13 +443,14 @@ def knn_phase(dev):
         "replaces": "lego_loam_tpu/match/pallas_knn.py:134",
         "shape": [head["Q"], head["M"]],
         "max_abs_err": max(r.get("max_abs_err", 0.0) for r in report),
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+        **{k: head[k] for k in TIME_KEYS}, "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "operations",
         "library_ms": head["library_ms"], "bound_how": head["bound_how"],
+        "launch_floor_ms": floor,
         "other_shapes": {
-            r["case"]: {k: r[k] for k in ("Q", "M", "kernel_ms", "plain_ms",
+            r["case"]: {k: r[k] for k in ("Q", "M", *TIME_KEYS, "plain_ms",
                                           "library_ms", "bound_ms")}
-            for r in report if "kernel_ms" in r and r is not head}}
+            for r in report if "ms" in r and r is not head}}
     emit({"phase": "kernel", "kernel": "knn5", "cases": report})
     return entry
 
@@ -545,6 +617,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also trace N scans with torch.profiler")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases: no replay, no "
+                         "launch counts and no final ok line")
     args = ap.parse_args()
     if args.scans < 60:
         ap.error("--scans must be at least 60")
@@ -573,12 +648,19 @@ def main() -> int:
     cfg = cfg.replace(mapping=dataclasses.replace(
         cfg.mapping, enable_loop_closure=False))
     t0 = time.time()
+    if args.kernels_only:
+        args.scans = 3
     scans, gt, times = make_sequence(args.scans, cfg, seed=args.seed,
                                      noise=0.01, speed=1.2)
     emit({"phase": "data", "scans": args.scans, "seed": args.seed,
           "seconds": time.time() - t0})
 
-    entries = [label_phase(scans, cfg, dev), knn_phase(dev)]
+    floor = launch_floor_phase()
+    entries = [label_phase(scans, cfg, dev, floor), knn_phase(dev, floor)]
+    if args.kernels_only:
+        emit({"phase": "done", "seconds": time.time() - t_start})
+        emit({"kernels": entries})
+        return 0
     parity_phase(dev)
     launches, state, packed = slice_phase(scans, gt, times, cfg, dev)
     if args.profile:
