@@ -400,7 +400,7 @@ def knn_phase(dev, floor):
     shapes = [("map_corner", 1024, 16384), ("map_surf", 2048, 32768),
               ("corner_2048", 2048, 16384), ("surf_8192", 8192, 32768),
               ("icp_4096", 4096, 32768), ("ragged", 1000, 5000)]
-    report, timed = [], {}
+    report, by_name = [], {}
     for k, (name, Q, M) in enumerate(shapes):
         case = knn_case(Q, M, 100 + k, dev)
         rep = check_knn(name, *case)
@@ -415,7 +415,7 @@ def knn_phase(dev, floor):
         rep["bound_how"] = (f"{n_ops} flops (8 per valid pair) / 67e12 vs "
                             f"{n_bytes} bytes / 3.35e12")
         report.append(rep)
-        timed[name] = rep
+        by_name[name] = rep
         del case, q, qv, c, cv
         torch.cuda.empty_cache()
 
@@ -436,7 +436,7 @@ def knn_phase(dev, floor):
     assert torch.all(d2 > FAR) and torch.all(idx == 0)
     report.append({"case": "fewer_than_5_valid", "ok": True})
 
-    head = timed["map_surf"]
+    head = by_name["map_surf"]
     entry = {
         "name": "knn5", "route": "cuda",
         "source": "lego_loam_tpu_torch/csrc/knn5.cu",
