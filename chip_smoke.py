@@ -9,7 +9,9 @@ card.  It
 1. prints the card (``nvidia-smi`` name and power limit) and the versions,
 2. builds the hand-written kernels from ``lego_loam_tpu_torch/csrc``,
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the pipeline gives it and a few harder ones, and times kernel,
+   shapes the pipeline gives it and a few harder ones (the grouped 5-NN call
+   against single calls, repeated calls against each other, each wrapper
+   replayed from a CUDA graph against its eager result), and times kernel,
    plain version and (where one exists) a library call,
 4. replays a small sequence on the card and on the CPU and compares them,
 5. drives the main path — ``pipeline.slam.replay`` of a synthetic VLP-16
@@ -23,7 +25,7 @@ card.  It
 
 Every phase raises on failure; nothing is caught and skipped.  A kernel
 gets two times: ``ms``, the device time of one launch (``DEVICE_LAUNCHES``
-launches between one pair of CUDA events, once issued eagerly and once
+launches between one pair of CUDA events, once launched eagerly and once
 replayed from a CUDA graph; the smaller of the two per-launch times, since
 the eager loop cannot go below the host's enqueue rate), and ``call_ms``,
 one eager wrapper call between a pair of events (what a caller that waits
@@ -96,7 +98,7 @@ def _events_ms(run, reps: int) -> float:
 
 def device_ms(fn, n: int = DEVICE_LAUNCHES, reps: int = 5) -> dict:
     """Device time of one launch of ``fn()`` on inputs already resident:
-    ``n`` launches between one pair of events, divided by ``n`` — issued
+    ``n`` launches between one pair of events, divided by ``n`` — launched
     eagerly (``ms_loop``; bounded below by the host's enqueue rate) and
     captured once in a CUDA graph and replayed (``ms_graph``; no host work
     between launches).  ``ms`` is the smaller."""
@@ -179,6 +181,64 @@ def semantics_phase(dev) -> None:
     emit({"phase": "semantics", "first_extremum": True, "stable_sort": True})
 
 
+def flat(result):
+    """Tensors of a wrapper's result, whatever its nesting."""
+    if isinstance(result, torch.Tensor):
+        return [result]
+    return [t for part in result for t in flat(part)]
+
+
+def capture_check(name, fn, first, second) -> None:
+    """``fn(*inputs)`` captured in a CUDA graph on the contents of ``first``
+    (after a warm-up call) and replayed on the contents of ``second``,
+    copied into the same tensors, must equal the eager call on ``second``."""
+    static = [t.clone() for t in first]
+    fn(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*static)
+    for dst, src in zip(static, second):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = fn(*second)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(flat(captured), flat(eager))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: graph replay != eager call "
+                                 f"(output {k})")
+
+
+def kernel_resources(*names):
+    """Registers and spill bytes of the kernels whose (mangled) entry name
+    contains one of ``names``, from the verbose build's ptxas output."""
+    import re
+    from lego_loam_tpu_torch import kernels
+    found, entry = {}, None
+    for log in kernels.build_logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = next((n for n in names if n in m.group(1)), None)
+                if entry:
+                    found.setdefault(entry, {"registers": 0, "spill_bytes": 0})
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                found[entry]["spill_bytes"] = max(
+                    found[entry]["spill_bytes"],
+                    int(m.group(1)) + int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:        # the most over a kernel's template instances
+                found[entry]["registers"] = max(found[entry]["registers"],
+                                                int(m.group(1)))
+    return found
+
+
 # --------------------------------------------------------------------------
 # phase 3a: K1, connected-component labels
 # --------------------------------------------------------------------------
@@ -194,8 +254,7 @@ def label_inputs(segmentable, right, down):
     flat = torch.arange(V * H, dtype=torch.int32,
                         device=segmentable.device).reshape(V, H)
     labels0 = torch.where(segmentable, flat, SENTINEL)
-    return (labels0.contiguous(), right.to(torch.int32).contiguous(),
-            down.to(torch.int32).contiguous())
+    return labels0.contiguous(), right.contiguous(), down.contiguous()
 
 
 def scan_label_inputs(points, cfg, dev):
@@ -258,25 +317,50 @@ def label_phase(scans, cfg, dev, floor):
 
     report = []
     for name, (lab0, right, down) in cases.items():
-        got = cuda_label.propagate_labels(lab0, right, down)
-        torch.cuda.synchronize()
         ref = cuda_label.propagate_labels_torch(lab0, right, down,
                                                 max_sweeps=100000)
-        n_bad = int(torch.sum(got != ref))
-        if n_bad:
-            raise AssertionError(f"label kernel != plain on {name}: "
-                                 f"{n_bad} pixels differ")
+        # bool and int32 edge images; the kernel the image size picks
+        # (0), smaller clusters and the tiled kernel (-1): all bit-equal to
+        # the plain version
+        fits_one = lab0.numel() * 5 <= 232448
+        for edges in ("bool", "int32"):
+            r, d = ((right, down) if edges == "bool" else
+                    (right.to(torch.int32), down.to(torch.int32)))
+            for blocks in ((0, 1, 2, 4, -1) if fits_one else (0, 4, -1)):
+                got = cuda_label.propagate_labels_cuda(lab0, r, d,
+                                                       _blocks=blocks)
+                torch.cuda.synchronize()
+                n_bad = int(torch.sum(got != ref))
+                if n_bad:
+                    raise AssertionError(
+                        f"label kernel != plain on {name} ({edges} edges, "
+                        f"blocks={blocks}): {n_bad} pixels differ")
         seg = lab0 != cuda_label.SENTINEL
         report.append({"case": name, "shape": list(lab0.shape),
                        "segmentable": int(seg.sum()),
-                       "components": int(torch.unique(got[seg]).numel()),
+                       "components": int(torch.unique(ref[seg]).numel()),
                        "bit_equal": True})
     comps = {r["case"]: r["components"] for r in report}
     assert (comps["wrap"], comps["serpentine"], comps["empty"],
             comps["all_one"]) == (2, 1, 0, 1), comps
+    capture_check("label_ccl", cuda_label.propagate_labels_cuda,
+                  cases["scan0"], cases[f"scan{len(scans) - 1}"])
+    capture_check("label_ccl (HDL-64 image)",
+                  cuda_label.propagate_labels_cuda,
+                  cases["hdl64_scan"], cases["hdl64_random"])
+    capture_check("label_ccl (tiled kernel)",
+                  lambda *t: cuda_label.propagate_labels_cuda(*t, _blocks=-1),
+                  cases["hdl64_scan"], cases["hdl64_random"])
 
     lab0, right, down = cases[f"scan{len(scans) // 2}"]
     t = timed(lambda: cuda_label.propagate_labels_cuda(lab0, right, down))
+    # the alternatives the image size did not pick, at both image sizes
+    other = {f"blocks={b}": timed(lambda: cuda_label.propagate_labels_cuda(
+        lab0, right, down, _blocks=b)) for b in (1, 2, 4, -1)}
+    big_other = {f"blocks={b}": timed(
+        lambda: cuda_label.propagate_labels_cuda(*cases["hdl64_scan"],
+                                                 _blocks=b))
+        for b in (4, -1)}
     plain_ms = time_ms(
         lambda: cuda_label.propagate_labels_torch(lab0, right, down, 64))
     big_t = timed(lambda: cuda_label.propagate_labels_cuda(
@@ -285,11 +369,11 @@ def label_phase(scans, cfg, dev, floor):
         *cases["hdl64_scan"], 64))
 
     def bound_ms(n_pixels):
-        n_bytes = 4 * n_pixels * 4             # 3 int32 images in, 1 out
+        n_bytes = n_pixels * (4 + 1 + 1 + 4)   # labels0, 2 masks in; 1 out
         n_ops = 8 * n_pixels                   # a few integer ops a pixel
         return max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
 
-    n_bytes = 4 * V * H * 4
+    n_bytes = V * H * 10
     bound = bound_ms(V * H)
     entry = {
         "name": "label_ccl", "route": "cuda",
@@ -298,13 +382,18 @@ def label_phase(scans, cfg, dev, floor):
         "shape": [V, H], "max_abs_err": 0, **t, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
         "launch_floor_ms": floor,
-        "bound_how": f"{n_bytes} bytes (3 int32 images read, 1 written) / "
-                     f"3.35e12 B/s; three dependent launches dominate",
+        "bound_how": f"{n_bytes} bytes (int32 labels0 and two 1-byte masks "
+                     f"read, int32 labels written) / 3.35e12 B/s; under one "
+                     f"launch (launch_floor_ms)",
+        "resources": kernel_resources("label_cluster_kernel",
+                                      "label_grid_kernel"),
+        "alternatives": other,
         "hdl64": {"shape": [Vb, Hb], **big_t, "plain_ms": big_plain_ms,
-                  "bound_ms": bound_ms(Vb * Hb)}}
+                  "bound_ms": bound_ms(Vb * Hb), "alternatives": big_other}}
     emit({"phase": "kernel", "kernel": "label_ccl", "cases": report,
-          **t, "plain_ms": plain_ms, "library_ms": None,
-          "bound_ms": bound, "hdl64_scan": entry["hdl64"]})
+          "graph_capture": True, **t, "plain_ms": plain_ms,
+          "library_ms": None, "bound_ms": bound,
+          "alternatives": other, "hdl64_scan": entry["hdl64"]})
     return entry
 
 
@@ -393,6 +482,43 @@ def library_knn(q, qv, c, cv):
     return torch.topk(d, 5, dim=-1, largest=False)
 
 
+def knn_grouped_checks(dev):
+    """The grouped entry point against single calls, the in-kernel merge
+    against itself over 20 calls, and both entry points replayed from a
+    CUDA graph, at the shapes one re-association of the mapping stage has."""
+    from lego_loam_tpu_torch.match import cuda_knn
+    corner = knn_case(1024, 16384, 201, dev)
+    surf = knn_case(2048, 32768, 202, dev)
+    ragged = knn_case(1000, 5000, 203, dev)
+    single = [cuda_knn.knn5_cuda(*p) for p in (corner, surf, ragged)]
+    before = cuda_knn.launch_count
+    grouped = cuda_knn.knn5_grouped([corner, surf, ragged])
+    assert cuda_knn.launch_count == before + 1, "grouped call: one launch"
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(flat(grouped), flat(single))):
+        assert torch.equal(a, b), f"grouped != single calls (output {k})"
+    for _ in range(20):
+        again = cuda_knn.knn5_grouped([corner, surf])
+        for k, (a, b) in enumerate(zip(flat(again), flat(single[:2]))):
+            assert torch.equal(a, b), f"repeat call differs (output {k})"
+    # a candidate view that starts off the 16-byte grid is staged
+    q, qv, c, cv = ragged
+    shifted = cuda_knn.knn5_cuda(q, qv, c[1:], cv[1:])
+    ref = cuda_knn.knn5_cuda(q, qv, c[1:].clone(), cv[1:].clone())
+    assert torch.equal(shifted[0], ref[0]) and torch.equal(shifted[1], ref[1])
+    capture_check("knn5", cuda_knn.knn5_cuda, surf,
+                  knn_case(2048, 32768, 204, dev))
+    other = (knn_case(1024, 16384, 205, dev), knn_case(2048, 32768, 206, dev))
+    capture_check(
+        "knn5_grouped",
+        lambda *t: cuda_knn.knn5_grouped([t[:4], t[4:]]),
+        corner + surf, other[0] + other[1])
+    pair = timed(lambda: cuda_knn.knn5_grouped([corner, surf]))
+    return {"case": "grouped_repeat_capture", "grouped_equals_single": True,
+            "repeats_identical": 20, "graph_capture": True,
+            "corner_and_surf_in_one_launch": pair}
+
+
 def knn_phase(dev, floor):
     from lego_loam_tpu_torch.match import cuda_knn
     # the pipeline's own shapes first (per-keyframe scan caps against the
@@ -435,6 +561,7 @@ def knn_phase(dev, floor):
     idx, d2 = cuda_knn.knn5(q, qv, c, cv)
     assert torch.all(d2 > FAR) and torch.all(idx == 0)
     report.append({"case": "fewer_than_5_valid", "ok": True})
+    report.append(knn_grouped_checks(dev))
 
     head = by_name["map_surf"]
     entry = {
@@ -447,6 +574,9 @@ def knn_phase(dev, floor):
         "bound_ms": head["bound_ms"], "bound_by": "operations",
         "library_ms": head["library_ms"], "bound_how": head["bound_how"],
         "launch_floor_ms": floor,
+        "resources": kernel_resources("knn5_kernel"),
+        "corner_and_surf_in_one_launch": report[-1][
+            "corner_and_surf_in_one_launch"],
         "other_shapes": {
             r["case"]: {k: r[k] for k in ("Q", "M", *TIME_KEYS, "plain_ms",
                                           "library_ms", "bound_ms")}
@@ -573,7 +703,10 @@ def slice_phase(scans, gt, times, cfg, dev):
     assert result["factors"] == result["keyframes"] - 1
     assert launches["label_ccl"] == n, launches
     assert with_map >= cycles - 2
-    assert launches["knn5"] >= 2 * with_map, launches
+    # one launch per re-association (corner and surf searched together),
+    # at least one and at most scan2map_iters of them per mapping cycle
+    assert (with_map <= launches["knn5"]
+            <= cfg.mapping.scan2map_iters * with_map), launches
     return launches, state, (x, v, t)
 
 
@@ -636,11 +769,13 @@ def main() -> int:
     dev = torch.device("cuda")
     device_phase()
 
-    kernels.build(force=True)
+    kernels.build(force=True, verbose=True)
     kernels.lib()
     emit({"phase": "build", "library": os.path.relpath(
               os.path.join(kernels.build_dir(), "libkernels.so")),
-          "seconds": kernels.build_seconds, "sources": list(kernels._SOURCES)})
+          "seconds": kernels.build_seconds, "sources": list(kernels._SOURCES),
+          "resources": kernel_resources("knn5_kernel", "label_cluster_kernel",
+                                        "label_grid_kernel", "noop_kernel")})
 
     semantics_phase(dev)
 

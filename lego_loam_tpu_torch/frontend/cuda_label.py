@@ -5,9 +5,9 @@ both versions: given
 
 * ``labels0`` (V, H) int32 — flat pixel index on segmentable pixels,
   sentinel ``2**30`` elsewhere,
-* ``right`` (V, H) int32 0/1 — edge (i,j)↔(i,j+1 mod H), including the
-  H−1↔0 wrap,
-* ``down`` (V, H) int32 0/1 — edge (i,j)↔(i+1,j),
+* ``right`` (V, H) bool, or int32 0/1 — edge (i,j)↔(i,j+1 mod H),
+  including the H−1↔0 wrap,
+* ``down`` (V, H) bool, or int32 0/1 — edge (i,j)↔(i+1,j),
 
 return (V, H) int32 labels where every segmentable pixel carries the minimum
 flat index of its component and every other pixel the sentinel.  Edges only
@@ -105,41 +105,67 @@ def propagate_labels_torch(labels0: Tensor, right: Tensor, down: Tensor,
     return lab
 
 
-def propagate_labels_cuda(labels0: Tensor, right: Tensor,
-                          down: Tensor) -> Tensor:
-    """Launch the union-find kernel (``csrc/label.cu``) on the current
-    stream.  Takes contiguous int32 (V, H) CUDA tensors on one device."""
+def propagate_labels_cuda(labels0: Tensor, right: Tensor, down: Tensor,
+                          _blocks: int = 0) -> Tensor:
+    """Launch the union-find kernel (``csrc/label.cu``) ONCE on the current
+    stream.  Takes contiguous (V, H) CUDA tensors on one device: ``labels0``
+    int32, ``right`` and ``down`` both bool or both int32.  An image whose
+    rows fit the shared memory of a cluster of up to 8 thread blocks takes
+    the cluster kernel, any other the tiled cooperative kernel: the image
+    size decides.  ``_blocks`` is for measurement only (same labels): 1 to 8
+    asks for a cluster of that many blocks, -1 for the tiled kernel."""
     global launch_count
     from ..kernels import lib
 
+    dev, shape, edge = labels0.device, labels0.shape, right.dtype
+    if not (labels0.is_cuda and labels0.dim() == 2
+            and labels0.dtype is torch.int32
+            and (edge is torch.bool or edge is torch.int32)
+            and down.dtype is edge and right.device == down.device == dev
+            and right.shape == down.shape == shape
+            and labels0.is_contiguous() and right.is_contiguous()
+            and down.is_contiguous()):
+        _refuse(labels0, right, down)
+    V, H = shape
+    if V * H >= SENTINEL:
+        raise ValueError("image too large for the 2**30 sentinel")
+
+    out = torch.empty_like(labels0)
+    if V * H == 0:
+        return out
+    args = (labels0.data_ptr(), right.data_ptr(), down.data_ptr(),
+            out.data_ptr(), V, H, 1 if edge is torch.bool else 4, _blocks)
+    if torch.cuda.current_device() == dev.index:
+        err = lib().label_ccl(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = lib().label_ccl(*args,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"label_ccl launch failed: CUDA error {err}")
+    launch_count += 1
+    return out
+
+
+def _refuse(labels0: Tensor, right: Tensor, down: Tensor) -> None:
+    """Name what the kernel cannot take."""
     if labels0.dim() != 2:
         raise ValueError(f"labels0 must be (V, H), got {tuple(labels0.shape)}")
+    if labels0.dtype != torch.int32:
+        raise TypeError(f"labels0 must be int32, got {labels0.dtype}")
+    if right.dtype not in (torch.bool, torch.int32) or down.dtype != right.dtype:
+        raise TypeError(f"right and down must both be bool or both int32, "
+                        f"got {right.dtype} and {down.dtype}")
     for name, t in (("labels0", labels0), ("right", right), ("down", down)):
         if not t.is_cuda or t.device != labels0.device:
             raise ValueError(f"{name} must be a CUDA tensor on "
                              f"{labels0.device}, got {t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
         if t.shape != labels0.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(labels0.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    V, H = labels0.shape
-    if V * H >= SENTINEL:
-        raise ValueError("image too large for the 2**30 sentinel")
-
-    parent = torch.empty_like(labels0)
-    out = torch.empty_like(labels0)
-    with torch.cuda.device(labels0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib().label_ccl(labels0.data_ptr(), right.data_ptr(),
-                              down.data_ptr(), parent.data_ptr(),
-                              out.data_ptr(), V, H, stream)
-    if err != 0:
-        raise RuntimeError(f"label_ccl launch failed: CUDA error {err}")
-    launch_count += 1
-    return out
+    raise ValueError("tensors the kernel cannot take")
 
 
 def propagate_labels(labels0: Tensor, right: Tensor, down: Tensor,

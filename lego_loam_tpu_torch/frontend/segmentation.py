@@ -65,9 +65,8 @@ def label_components(img: RangeImage, cfg: LegoLoamConfig):
     flat = torch.arange(V * H, dtype=torch.int32,
                         device=segmentable.device).reshape(V, H)
     labels0 = torch.where(segmentable, flat, SENTINEL)
-    labels = propagate_labels(
-        labels0, right.to(torch.int32), down.to(torch.int32),
-        max_sweeps=cfg.projection.max_label_iters)
+    labels = propagate_labels(labels0, right, down,
+                              max_sweeps=cfg.projection.max_label_iters)
     return labels, segmentable
 
 

@@ -27,7 +27,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+_defines: tuple = ()                    # -D flags of the loaded variant
 build_seconds: Optional[float] = None   # set when this process built the library
+build_logs: dict = {}                   # source -> ptxas output of a verbose build
 
 
 def build_dir() -> str:
@@ -47,24 +49,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+def _digest(defines: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join([*_NVCC_FLAGS, *defines]).encode())
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
 
 
-def build(verbose: bool = False, force: bool = False) -> str:
+def build(verbose: bool = False, force: bool = False,
+          defines: tuple = ()) -> str:
     """Compile ``csrc/*.cu`` into ``libkernels.so``; returns its path.
     An up-to-date library is kept unless ``force``; ``verbose`` prints what
-    ``ptxas`` says of each kernel (registers, shared memory, spills)."""
+    ``ptxas`` says of each kernel (registers, shared memory, spills) and
+    keeps it in ``build_logs``.  ``defines`` (``"NAME=value"`` strings)
+    override the sources' tuning constants; such a variant is built into a
+    directory of its own."""
     global build_seconds
+    digest = _digest(defines)
     out_dir = os.path.abspath(build_dir())
+    if defines:
+        out_dir = os.path.join(out_dir, "variants", digest[:16])
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, "libkernels.so")
     stamp_path = lib_path + ".sha256"
-    digest = _digest()
     if not force and os.path.exists(lib_path) and os.path.exists(stamp_path):
         with open(stamp_path) as f:
             if f.read().strip() == digest:
@@ -72,7 +80,8 @@ def build(verbose: bool = False, force: bool = False) -> str:
 
     t0 = time.time()
     nvcc = _nvcc()
-    flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    flags = (_NVCC_FLAGS + [f"-D{d}" for d in defines]
+             + (["-Xptxas", "-v"] if verbose else []))
     procs, objs = [], []
     for name in _SOURCES:
         obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
@@ -85,6 +94,7 @@ def build(verbose: bool = False, force: bool = False) -> str:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         if verbose and log:
+            build_logs[name] = log
             print(log, flush=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
@@ -105,17 +115,29 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        cdll = ctypes.CDLL(build())
+        cdll = ctypes.CDLL(build(defines=_defines))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # int label_ccl(labels0, right, down, parent, out, V, H, stream)
-        cdll.label_ccl.argtypes = [p, p, p, p, p, i, i, p]
+        # int label_ccl(labels0, right, down, out, V, H, edge_bytes, blocks,
+        #               stream)
+        cdll.label_ccl.argtypes = [p, p, p, p, i, i, i, i, p]
         cdll.label_ccl.restype = i
-        # int knn5(query, query_valid, cand, cand_valid, part_d2, part_idx,
-        #          out_idx, out_d2, Q, M, splits, stream)
-        cdll.knn5.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-        cdll.knn5.restype = i
+        # int knn5_batch(const Batch* batch, total_blocks, stream);
+        # int knn5_query_block()
+        cdll.knn5_batch.argtypes = [p, i, p]
+        cdll.knn5_batch.restype = i
+        cdll.knn5_query_block.argtypes = []
+        cdll.knn5_query_block.restype = i
         # int noop_launch(stream): an empty kernel, for the launch floor
         cdll.noop_launch.argtypes = [p]
         cdll.noop_launch.restype = i
         _lib = cdll
     return _lib
+
+
+def use_variant(defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if need be) and load the library with the sources' tuning
+    constants overridden, for a sweep; ``()`` goes back to the defaults.
+    The caller also resets whatever it derived from the old library."""
+    global _lib, _defines
+    _lib, _defines = None, tuple(defines)
+    return lib()

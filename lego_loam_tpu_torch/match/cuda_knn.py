@@ -18,9 +18,19 @@ versions (that of ``bruteforce.knn_chunked(k=5)``):
 hand-written kernel (``csrc/knn5.cu``) or raise; CPU tensors take the plain
 version.  There is no fallback between the two and no backend switch:
 ``MappingConfig.knn_impl`` is kept in the config copy only.
+
+:func:`knn5_grouped` runs up to four such searches at once — on the card in
+ONE kernel launch — and returns what the single calls would return, bit for
+bit; :func:`knn5` is its one-problem case.  The kernel's scratch (partial
+lists of the candidate slices, ticket counters) and its problem descriptors
+are cached per device and shape tuple, so a call allocates only its outputs;
+launches that share a cache entry must be ordered on one stream.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -29,11 +39,15 @@ from .bruteforce import pairwise_sqdist
 Tensor = torch.Tensor
 
 _INF = 3e38
-_QUERIES_PER_BLOCK = 128       # csrc/knn5.cu::kQueriesPerBlock
-_TARGET_BLOCKS = 264           # two blocks for each of an H100's 132 SMs
-_MAX_SPLITS = 16
+_QUERY_BLOCK = 128             # csrc/knn5.cu: kThreads * kR queries a block
+_MAX_PROBLEMS = 4              # csrc/knn5.cu::kMaxProblems
+_SLICE_ALIGN = 16              # candidates: one 16-byte copy of mask bytes
+_TILE = 256                    # csrc/knn5.cu::kTile: a long slice is whole tiles
+_MIN_SLICE = 256               # candidates a slice is worth at least
+_MAX_SPLITS = 32               # lists one thread merges per query
+_BLOCKS_PER_SM = 8             # blocks wanted on each SM
 
-launch_count = 0     # +1 per kernel launch made by knn5_cuda
+launch_count = 0     # +1 per kernel launch made by knn5_cuda_grouped
 
 
 def knn5_torch(query: Tensor, query_valid: Tensor, cand: Tensor,
@@ -57,59 +71,210 @@ def knn5_torch(query: Tensor, query_valid: Tensor, cand: Tensor,
     return idx.to(torch.int32), exact
 
 
-def _splits(Q: int, M: int) -> int:
-    """Candidate slices per query block, so the grid fills the card."""
-    blocks = -(-Q // _QUERIES_PER_BLOCK)
-    want = -(-_TARGET_BLOCKS // max(blocks, 1))
-    most = max(1, -(-M // 1024))                          # ≥ one tile each
-    return max(1, min(want, _MAX_SPLITS, most))
+class Geometry(NamedTuple):
+    """How one search is cut into blocks: ``qblocks`` groups of
+    ``_QUERY_BLOCK`` queries times ``splits`` candidate slices of ``chunk``
+    candidates each."""
+    qblocks: int
+    splits: int
+    chunk: int
+
+    @property
+    def blocks(self) -> int:
+        return self.qblocks * self.splits
+
+    @property
+    def scratch_entries(self) -> int:
+        """(d2, id) pairs of partial lists, six a list (five and one of
+        padding); none when nothing is merged."""
+        if self.splits == 1:
+            return 0
+        return self.blocks * 6 * _QUERY_BLOCK
 
 
-def knn5_cuda(query: Tensor, query_valid: Tensor, cand: Tensor,
-              cand_valid: Tensor):
-    """Launch the fused kernel (``csrc/knn5.cu``) on the current stream.
-    Takes contiguous CUDA tensors on one device: float32 points, bool
-    masks."""
-    global launch_count
-    from ..kernels import lib
+def launch_geometry(Q: int, M: int, sm_count: int) -> Geometry:
+    """Slices per query block so that ``_BLOCKS_PER_SM`` blocks exist for
+    every SM where Q * M allows: no slice shorter than ``_MIN_SLICE``
+    (unless M is), no more than ``_MAX_SPLITS`` of them, every slice
+    non-empty, and the slices cover [0, M) exactly once."""
+    qblocks = -(-Q // _QUERY_BLOCK)
+    want = -(-_BLOCKS_PER_SM * sm_count // max(qblocks, 1))
+    splits = max(1, min(want, _MAX_SPLITS, M // _MIN_SLICE))
+    chunk = -(-max(M, 1) // splits)
+    align = _TILE if chunk >= 2 * _TILE else _SLICE_ALIGN
+    chunk = -(-chunk // align) * align
+    splits = max(1, -(-M // chunk))
+    return Geometry(qblocks, splits, chunk)
 
-    dev = query.device
+
+class _Problem(ctypes.Structure):
+    """csrc/knn5.cu::Problem."""
+    _fields_ = [("query", ctypes.c_void_p), ("query_valid", ctypes.c_void_p),
+                ("cand", ctypes.c_void_p), ("cand_valid", ctypes.c_void_p),
+                ("out_idx", ctypes.c_void_p), ("out_d2", ctypes.c_void_p),
+                ("part", ctypes.c_void_p), ("tickets", ctypes.c_void_p),
+                ("Q", ctypes.c_int), ("M", ctypes.c_int),
+                ("splits", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("block_begin", ctypes.c_int), ("pad_", ctypes.c_int)]
+
+
+class _Batch(ctypes.Structure):
+    """csrc/knn5.cu::Batch."""
+    _fields_ = [("p", _Problem * _MAX_PROBLEMS), ("n", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
+
+
+class _Plan:
+    """Everything of a launch that depends only on the device and the
+    shapes: geometry, scratch, and a descriptor block whose pointer fields
+    are filled in per call."""
+
+    def __init__(self, dev: torch.device, shapes):
+        from ..kernels import lib
+        if lib().knn5_query_block() != _QUERY_BLOCK:
+            raise RuntimeError(
+                "csrc/knn5.cu was built for another query block than "
+                f"_QUERY_BLOCK = {_QUERY_BLOCK}")
+        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.geometry = [launch_geometry(Q, M, sm_count) for Q, M in shapes]
+        for (Q, M), g in zip(shapes, self.geometry):
+            if (max(g.scratch_entries, 5 * Q, 3 * M) >= 2 ** 31
+                    or g.blocks >= 2 ** 31):
+                raise ValueError("point set too large for 32-bit offsets")
+        self.blocks = sum(g.blocks for g in self.geometry)
+        if self.blocks >= 2 ** 31:
+            raise ValueError("too many blocks for one launch")
+        # float2 entries; counters are zero between launches (the block
+        # that draws a counter's last ticket resets it)
+        self.part = torch.empty(
+            (max(1, sum(g.scratch_entries for g in self.geometry)), 2),
+            dtype=torch.float32, device=dev)
+        self.tickets = torch.zeros(
+            (max(1, sum(g.qblocks for g in self.geometry)),),
+            dtype=torch.int32, device=dev)
+        self.batch = _Batch()
+        self.batch.n = len(shapes)
+        part_at, ticket_at, block_at = 0, 0, 0
+        for k, ((Q, M), g) in enumerate(zip(shapes, self.geometry)):
+            d = self.batch.p[k]
+            d.Q, d.M, d.splits, d.chunk = Q, M, g.splits, g.chunk
+            d.block_begin = block_at
+            d.part = self.part.data_ptr() + 8 * part_at
+            d.tickets = self.tickets.data_ptr() + 4 * ticket_at
+            part_at += g.scratch_entries
+            ticket_at += g.qblocks
+            block_at += g.blocks
+        self.batch_ref = ctypes.byref(self.batch)
+
+
+_plans: dict = {}
+
+
+def _check_problem(k: int, query: Tensor, query_valid: Tensor, cand: Tensor,
+                   cand_valid: Tensor, dev: torch.device) -> None:
+    """Raise on what the kernel does not take."""
     for name, t, dtype, tail in (
             ("query", query, torch.float32, (3,)),
             ("query_valid", query_valid, torch.bool, ()),
             ("cand", cand, torch.float32, (3,)),
             ("cand_valid", cand_valid, torch.bool, ())):
         if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
-                             f"got {t.device}")
+            raise ValueError(f"problem {k}: {name} must be a CUDA tensor on "
+                             f"{dev}, got {t.device}")
         if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+            raise TypeError(f"problem {k}: {name} must be {dtype}, "
+                            f"got {t.dtype}")
         if t.dim() != 1 + len(tail) or tuple(t.shape[1:]) != tail:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+            raise ValueError(f"problem {k}: {name} has shape "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    Q, M = query.shape[0], cand.shape[0]
-    if query_valid.shape[0] != Q or cand_valid.shape[0] != M:
-        raise ValueError("mask length does not match its point set")
-    if Q * _MAX_SPLITS * 5 >= 2 ** 31 or 3 * M >= 2 ** 31:
-        raise ValueError("point set too large for 32-bit offsets")
+            raise ValueError(f"problem {k}: {name} must be contiguous")
+    if (query_valid.shape[0] != query.shape[0]
+            or cand_valid.shape[0] != cand.shape[0]):
+        raise ValueError(f"problem {k}: mask length does not match its "
+                         f"point set")
 
-    splits = _splits(Q, M)
-    part_d2 = torch.empty((Q, splits, 5), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((Q, splits, 5), dtype=torch.int32, device=dev)
-    out_idx = torch.empty((Q, 5), dtype=torch.int32, device=dev)
-    out_d2 = torch.empty((Q, 5), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib().knn5(query.data_ptr(), query_valid.data_ptr(),
-                         cand.data_ptr(), cand_valid.data_ptr(),
-                         part_d2.data_ptr(), part_idx.data_ptr(),
-                         out_idx.data_ptr(), out_d2.data_ptr(),
-                         Q, M, splits, stream)
+
+def knn5_cuda_grouped(problems: Sequence[tuple]):
+    """Launch the kernel (``csrc/knn5.cu``) ONCE, on the current stream, for
+    up to four searches ``(query, query_valid, cand, cand_valid)``:
+    contiguous CUDA tensors on one device, float32 points, bool masks.
+    Returns one ``(idx, d2)`` per search."""
+    global launch_count
+    from ..kernels import lib
+
+    if not 1 <= len(problems) <= _MAX_PROBLEMS:
+        raise ValueError(f"1 to {_MAX_PROBLEMS} problems a launch, "
+                         f"got {len(problems)}")
+    dev = problems[0][0].device
+    f32, boolean = torch.float32, torch.bool
+    for k, (q, qv, c, cv) in enumerate(problems):
+        # one pass over what the kernel relies on; the slow path names the
+        # offender
+        if not (q.is_cuda and q.device == qv.device == c.device == cv.device
+                == dev and q.dtype is f32 and c.dtype is f32
+                and qv.dtype is boolean and cv.dtype is boolean
+                and q.dim() == 2 and c.dim() == 2 and qv.dim() == 1
+                and cv.dim() == 1 and q.shape[1] == 3 and c.shape[1] == 3
+                and qv.shape[0] == q.shape[0] and cv.shape[0] == c.shape[0]
+                and q.is_contiguous() and qv.is_contiguous()
+                and c.is_contiguous() and cv.is_contiguous()):
+            _check_problem(k, q, qv, c, cv, dev)
+            raise ValueError(f"problem {k}: tensors the kernel cannot take")
+
+    shapes = tuple((p[0].shape[0], p[2].shape[0]) for p in problems)
+    key = (dev.index, shapes)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _Plan(dev, shapes)
+
+    results, keep = [], []
+    for k, (q, qv, c, cv) in enumerate(problems):
+        # the tile copies are 16 bytes wide: a view that starts off that
+        # grid is staged through an aligned copy
+        if c.data_ptr() % 16:
+            c = c.clone()
+            keep.append(c)
+        if cv.data_ptr() % 16:
+            cv = cv.clone()
+            keep.append(cv)
+        Q = shapes[k][0]
+        out_idx = torch.empty((Q, 5), dtype=torch.int32, device=dev)
+        out_d2 = torch.empty((Q, 5), dtype=torch.float32, device=dev)
+        d = plan.batch.p[k]
+        d.query, d.query_valid = q.data_ptr(), qv.data_ptr()
+        d.cand, d.cand_valid = c.data_ptr(), cv.data_ptr()
+        d.out_idx, d.out_d2 = out_idx.data_ptr(), out_d2.data_ptr()
+        results.append((out_idx, out_d2))
+    if plan.blocks == 0:
+        return results
+    if torch.cuda.current_device() == dev.index:
+        err = lib().knn5_batch(plan.batch_ref, plan.blocks,
+                               torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = lib().knn5_batch(plan.batch_ref, plan.blocks,
+                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn5 launch failed: CUDA error {err}")
     launch_count += 1
-    return out_idx, out_d2
+    return results
+
+
+def knn5_cuda(query: Tensor, query_valid: Tensor, cand: Tensor,
+              cand_valid: Tensor):
+    """One search through the kernel: the one-problem case of
+    :func:`knn5_cuda_grouped`."""
+    return knn5_cuda_grouped([(query, query_valid, cand, cand_valid)])[0]
+
+
+def knn5_grouped(problems: Sequence[tuple]):
+    """Several searches at once: one kernel launch for CUDA tensors, the
+    plain version on each for CPU tensors.  Same results as single
+    :func:`knn5` calls."""
+    if problems[0][0].is_cuda:
+        return knn5_cuda_grouped(problems)
+    return [knn5_torch(*p) for p in problems]
 
 
 def knn5(query: Tensor, query_valid: Tensor, cand: Tensor,

@@ -6,8 +6,9 @@ Reimplementation of ``MapOptimization::scan2MapOptimization``
 ``LMOptimization`` (:1199-1312):
 
 * 5-NN against the assembled submap replacing the per-point KD-tree
-  queries — ``match/cuda_knn.py::knn5`` (the hand-written kernel on the
-  card);
+  queries — ``match/cuda_knn.py::knn5_grouped``: the corner and the surf
+  search of one re-association are ONE launch of the hand-written kernel on
+  the card;
 * corner: 5-point covariance eigendecomposition; a neighbourhood is a line
   iff λ_max > 3 λ_mid; point-to-line residual against the principal
   direction through the centroid (vector form — see solve/odometry.py for
@@ -42,7 +43,7 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import host_bool
 from ..core.linalg3 import eigvals_sym3, principal_eigvec_sym3
-from ..match.cuda_knn import knn5
+from ..match.cuda_knn import knn5_grouped
 
 Tensor = torch.Tensor
 
@@ -53,36 +54,40 @@ class MapCloud(NamedTuple):
     valid: Tensor   # (M,)
 
 
-def _neighbourhood(world: Tensor, pts_valid: Tensor, cloud: MapCloud,
-                   cfg: LegoLoamConfig):
-    """5-NN of every point + the gate shared by both associations: all
-    five exist and lie within ``neighbor_radius`` (exact distances)."""
+def _neighbourhoods(worlds, valids, clouds, cfg: LegoLoamConfig):
+    """5-NN of every point of every (points, map) pair, searched together,
+    + the gate shared by both associations: all five exist and lie within
+    ``neighbor_radius`` (exact distances).  One ``(nb, near_ok)`` a pair."""
     m = cfg.mapping
-    idx, d2 = knn5(world.contiguous(), pts_valid.contiguous(),
-                   cloud.xyz.contiguous(), cloud.valid.contiguous())
-    nb = cloud.xyz[idx.to(torch.int64)]                  # (N,5,3)
-    # gate on EXACT distances recomputed from the gathered points
-    # (difference-first), and detect "fewer than 5 candidates" by the
-    # +inf marker in the fifth slot
-    diff = nb - world[:, None, :]
-    d2_exact = torch.sum(diff * diff, dim=-1)
-    invalid5 = d2[:, 4] >= 1e30                          # <5 candidates
-    near_ok = (torch.max(d2_exact, dim=1).values < m.neighbor_radius ** 2) \
-        & ~invalid5                                      # :1037
-    return nb, near_ok
+    found = knn5_grouped([
+        (w.contiguous(), v.contiguous(), c.xyz.contiguous(),
+         c.valid.contiguous())
+        for w, v, c in zip(worlds, valids, clouds)])
+    out = []
+    for world, cloud, (idx, d2) in zip(worlds, clouds, found):
+        nb = cloud.xyz[idx.to(torch.int64)]              # (N,5,3)
+        # gate on EXACT distances recomputed from the gathered points
+        # (difference-first), and detect "fewer than 5 candidates" by the
+        # +inf marker in the fifth slot
+        diff = nb - world[:, None, :]
+        d2_exact = torch.sum(diff * diff, dim=-1)
+        invalid5 = d2[:, 4] >= 1e30                      # <5 candidates
+        near_ok = (torch.max(d2_exact, dim=1).values
+                   < m.neighbor_radius ** 2) & ~invalid5     # :1037
+        out.append((nb, near_ok))
+    return out
 
 
-def _corner_assoc(pose: Tensor, pts: Tensor, pts_valid: Tensor,
-                  corner_map: MapCloud, cfg: LegoLoamConfig):
-    """Associate corner points with line-like 5-NN neighbourhoods.
+def _corner_assoc(world: Tensor, pts_valid: Tensor, nb: Tensor,
+                  near_ok: Tensor, cfg: LegoLoamConfig):
+    """Associate corner points (already in the map frame, with their 5-NN
+    ``nb`` and gate ``near_ok``) with line-like neighbourhoods.
 
     Returns (centroid (N,3), line dir u (N,3), weight (N,)) — constants
     for the subsequent GN iteration (``cornerOptimization``,
     ``mapOptmization.cpp:1028-1134``).
     """
     m = cfg.mapping
-    world = se3.apply(pose, pts)
-    nb, near_ok = _neighbourhood(world, pts_valid, corner_map, cfg)
     centroid = torch.mean(nb, dim=1)
     d = nb - centroid[:, None, :]
     cov = torch.einsum("nki,nkj->nij", d, d) / 5.0
@@ -98,16 +103,16 @@ def _corner_assoc(pose: Tensor, pts: Tensor, pts_valid: Tensor,
     return centroid, u, torch.where(ok, w, 0.0)
 
 
-def _surf_assoc(pose: Tensor, pts: Tensor, pts_valid: Tensor,
-                surf_map: MapCloud, cfg: LegoLoamConfig):
-    """Associate surf points with planar 5-NN neighbourhoods.
+def _surf_assoc(world: Tensor, pts: Tensor, pts_valid: Tensor, nb: Tensor,
+                near_ok: Tensor, cfg: LegoLoamConfig):
+    """Associate surf points (``pts`` in the sensor frame, ``world`` in the
+    map frame, with their 5-NN ``nb`` and gate ``near_ok``) with planar
+    neighbourhoods.
 
     Returns (unit normal (N,3), offset (N,), weight (N,)) —
     (``surfOptimization``, ``mapOptmization.cpp:1136-1197``).
     """
     m = cfg.mapping
-    world = se3.apply(pose, pts)
-    nb, near_ok = _neighbourhood(world, pts_valid, surf_map, cfg)
     # Plane fit: centred covariance, normal = smallest eigenvector.  The
     # reference solves A·n = −1 on RAW map coordinates (:1146-1153),
     # whose normal equations condition as (‖p‖/spread)² — in f32 the
@@ -131,6 +136,20 @@ def _surf_assoc(pose: Tensor, pts: Tensor, pts_valid: Tensor,
         torch.sqrt(torch.clamp(local_rng, min=1e-9)))    # :1180-1184
     ok = pts_valid & near_ok & plane_ok & (w > 0.1)
     return n_unit, pd, torch.where(ok, w, 0.0)
+
+
+def _associate(pose: Tensor, corner_pts: Tensor, corner_valid: Tensor,
+               surf_pts: Tensor, surf_valid: Tensor, corner_map: MapCloud,
+               surf_map: MapCloud, cfg: LegoLoamConfig):
+    """One re-association: both clouds into the map frame, both 5-NN
+    searches in one go, then the two fits."""
+    world_c = se3.apply(pose, corner_pts)
+    world_s = se3.apply(pose, surf_pts)
+    (nb_c, ok_c), (nb_s, ok_s) = _neighbourhoods(
+        (world_c, world_s), (corner_valid, surf_valid),
+        (corner_map, surf_map), cfg)
+    return (_corner_assoc(world_c, corner_valid, nb_c, ok_c, cfg)
+            + _surf_assoc(world_s, surf_pts, surf_valid, nb_s, ok_s, cfg))
 
 
 def _apply_jac(pose: Tensor, pts: Tensor) -> Tensor:
@@ -169,9 +188,8 @@ def scan_to_map(pose0: Tensor, corner_pts: Tensor, corner_valid: Tensor,
         fresh = (m.scan2map_reassoc_every <= 1
                  or it % m.scan2map_reassoc_every == 0)
         if fresh:
-            A = (_corner_assoc(pose, corner_pts, corner_valid, corner_map,
-                               cfg)
-                 + _surf_assoc(pose, surf_pts, surf_valid, surf_map, cfg))
+            A = _associate(pose, corner_pts, corner_valid, surf_pts,
+                           surf_valid, corner_map, surf_map, cfg)
         centroid, u, wc, n_pl, pd, ws = A
         n_sel = torch.sum(wc > 0) + torch.sum(ws > 0)
 

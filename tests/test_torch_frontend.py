@@ -155,6 +155,41 @@ def test_propagate_labels_wrapper_dispatch():
         cuda_label.propagate_labels_cuda(lab0, z, z)      # not on the card
 
 
+def _edges_of(seg, rng_img):
+    img = to_torch("RangeImage", _image_from_masks(seg, rng_img))
+    segmentable, right, down = tseg._edge_masks(img, TCFG)
+    V, H = seg.shape
+    flat = torch.arange(V * H, dtype=torch.int32).reshape(V, H)
+    return torch.where(segmentable, flat, cuda_label.SENTINEL), right, down
+
+
+@pytest.mark.parametrize("case", [_wrap_case, _serpentine_case, _empty_case],
+                         ids=["wrap", "serpentine", "empty"])
+def test_propagate_labels_bool_and_int32_edges(case):
+    """Edge images as the pipeline makes them (bool) and as the JAX
+    package passes them (int32 0/1) give the same labels, through the
+    dispatcher and through the plain version."""
+    lab0, right, down = _edges_of(*case())
+    assert right.dtype == torch.bool and down.dtype == torch.bool
+    as_bool = cuda_label.propagate_labels(lab0, right, down)
+    as_int = cuda_label.propagate_labels(lab0, right.to(torch.int32),
+                                         down.to(torch.int32))
+    plain = cuda_label.propagate_labels_torch(lab0, right, down)
+    assert as_bool.dtype == torch.int32
+    assert torch.equal(as_bool, as_int) and torch.equal(as_bool, plain)
+
+
+def test_propagate_labels_cuda_refuses_mixed_edges():
+    lab0 = torch.full((4, 8), cuda_label.SENTINEL, dtype=torch.int32)
+    b = torch.zeros((4, 8), dtype=torch.bool)
+    with pytest.raises(TypeError):
+        cuda_label.propagate_labels_cuda(lab0, b, b.to(torch.int32))
+    with pytest.raises(TypeError):
+        cuda_label.propagate_labels_cuda(lab0.to(torch.int64), b, b)
+    with pytest.raises(ValueError):
+        cuda_label.propagate_labels_cuda(lab0, b, b)      # not on the card
+
+
 @pytest.mark.parametrize("k", range(len(SEEDS)))
 def test_segment_cloud_matches_jax(images, raws, projections, k):
     ref = to_np(projections[k])

@@ -123,6 +123,56 @@ def test_knn5_wrapper_dispatch_and_checks():
     with pytest.raises(ValueError):
         cuda_knn.knn5_cuda(q, torch.ones(4, dtype=torch.bool), c,
                            torch.ones(8, dtype=torch.bool))
-    assert cuda_knn._splits(8192, 32768) * 64 >= cuda_knn._TARGET_BLOCKS
-    assert cuda_knn._splits(2048, 16384) == 16
-    assert cuda_knn._splits(100, 500) == 1
+    with pytest.raises(ValueError):
+        cuda_knn.knn5_cuda_grouped([])                    # 1 to 4 problems
+    # the two main-path searches are cut into enough blocks for the card
+    for Q, M in ((1024, 16384), (2048, 32768)):
+        assert cuda_knn.launch_geometry(Q, M, 132).blocks >= 132
+    assert cuda_knn.launch_geometry(100, 500, 132).splits == 1
+
+
+@pytest.mark.parametrize("M", [1, 5000, 16384, 32768])
+@pytest.mark.parametrize("Q", [1, 127, 1000, 1024, 2048, 8192])
+def test_launch_geometry(Q, M):
+    """The host-side cut of one search into blocks: slices cover [0, M)
+    exactly once and none is empty, a slice starts on the 16-candidate grid
+    of the kernel's copies, there are enough blocks for 132 SMs where Q * M
+    allows, and the scratch stays under the 32-bit offset check."""
+    g = cuda_knn.launch_geometry(Q, M, 132)
+    assert g.qblocks == -(-Q // cuda_knn._QUERY_BLOCK)
+    assert g.qblocks * cuda_knn._QUERY_BLOCK >= Q
+    assert g.splits >= 1 and g.chunk % cuda_knn._SLICE_ALIGN == 0
+    assert g.splits * g.chunk >= M                       # covers [0, M)
+    assert (g.splits - 1) * g.chunk < M                  # last slice not empty
+    assert g.splits <= cuda_knn._MAX_SPLITS
+    if M >= 2 * cuda_knn._MIN_SLICE:
+        assert g.chunk >= cuda_knn._MIN_SLICE
+    # enough blocks for every SM unless the slices would get too short or
+    # too many
+    most = min(cuda_knn._MAX_SPLITS, max(1, M // cuda_knn._MIN_SLICE))
+    if g.qblocks * most >= 132:
+        assert g.blocks >= 132, g
+    assert g.blocks == g.qblocks * g.splits
+    assert g.scratch_entries == (0 if g.splits == 1 else
+                                 g.blocks * 6 * cuda_knn._QUERY_BLOCK)
+    assert g.scratch_entries < 2 ** 31
+
+
+def test_knn5_grouped_equals_single_calls(case):
+    """The grouped entry point on CPU tensors: same lists as single calls,
+    problem by problem, shapes mixed."""
+    q, qv, c, cv = _as_torch(case)
+    rng = np.random.default_rng(5)
+    q2 = torch.from_numpy(rng.uniform(-5, 5, (70, 3)).astype(np.float32))
+    c2 = torch.from_numpy(rng.uniform(-5, 5, (900, 3)).astype(np.float32))
+    problems = [(q, qv, c, cv),
+                (q2, torch.ones(70, dtype=torch.bool), c2,
+                 torch.from_numpy(rng.random(900) > 0.3)),
+                (q[:40], qv[:40], c[:4000], cv[:4000])]
+    before = cuda_knn.launch_count
+    grouped = cuda_knn.knn5_grouped(problems)
+    assert cuda_knn.launch_count == before and len(grouped) == 3
+    for (idx, d2), p in zip(grouped, problems):
+        ridx, rd2 = cuda_knn.knn5(*p)
+        assert idx.dtype == torch.int32 and idx.shape == (p[0].shape[0], 5)
+        assert torch.equal(idx, ridx) and torch.equal(d2, rd2)

@@ -193,6 +193,42 @@ def test_scan_to_map_matches_jax(mapped):
     np.testing.assert_array_equal(tnp(same), np.asarray(start))
 
 
+def test_scan_to_map_searches_corner_and_surf_together(mapped, monkeypatch):
+    """Every re-association is ONE grouped 5-NN call over (corner, surf),
+    and the pose it leads to is the JAX package's (1e-3, as above)."""
+    meta, clouds, assoc = mapped
+    m = JCFG.mapping
+    store = jkf.KeyframeStore(pose=meta.kf_pose, stamp=meta.kf_stamp,
+                              count=meta.kf_count, clouds=clouds)
+    pred = jmap.predict_pose(meta, assoc.odom)
+    cmap, smap = jkf.assemble_submap(store, pred, JCFG, window=4)
+    cds, cok = jvox.voxel_downsample(assoc.corner_xyz, assoc.corner_valid,
+                                     m.corner_leaf_size, jkf.CORNER_CAP)
+    sds, sok = jvox.voxel_downsample(assoc.surf_xyz, assoc.surf_valid,
+                                     m.surf_leaf_size, jkf.SURF_CAP)
+    start = pred + jnp.asarray([0.004, -0.003, 0.01, 0.08, -0.05, 0.02])
+    ref = np.asarray(js2m.scan_to_map(start, cds, cok, sds, sok, cmap, smap,
+                                      JCFG))
+    calls = []
+    grouped = ts2m.knn5_grouped
+
+    def counting(problems):
+        calls.append([(p[0].shape[0], p[2].shape[0]) for p in problems])
+        return grouped(problems)
+    monkeypatch.setattr(ts2m, "knn5_grouped", counting)
+    t = lambda a: torch.from_numpy(np.array(a))
+    got = ts2m.scan_to_map(
+        t(start), t(cds), t(cok), t(sds), t(sok),
+        ts2m.MapCloud(t(cmap.xyz), t(cmap.valid)),
+        ts2m.MapCloud(t(smap.xyz), t(smap.valid)), TCFG)
+    np.testing.assert_allclose(tnp(got), ref, atol=1e-3)
+    every = TCFG.mapping.scan2map_reassoc_every
+    assert 1 <= len(calls) <= -(-TCFG.mapping.scan2map_iters // max(every, 1))
+    shapes = [(cds.shape[0], cmap.xyz.shape[0]),
+              (sds.shape[0], smap.xyz.shape[0])]
+    assert all(c == shapes for c in calls)
+
+
 def test_mapping_step_matches_jax(mapped):
     meta, clouds, assoc = mapped
     rmeta, rrow, rpose, _ = to_np(
