@@ -9,10 +9,12 @@ card.  It
 1. prints the card (``nvidia-smi`` name and power limit) and the versions,
 2. builds the hand-written kernels from ``lego_loam_tpu_torch/csrc``,
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the pipeline gives it and a few harder ones (the grouped 5-NN call
-   against single calls, repeated calls against each other, each wrapper
-   replayed from a CUDA graph against its eager result), and times kernel,
-   plain version and (where one exists) a library call,
+   shapes the pipeline gives it and a few harder ones (label images of 1 to
+   128 rows, so that every cluster size and the tiled kernel run; the
+   grouped 5-NN call against the plain version and against single calls,
+   repeated calls against each other, each wrapper replayed from a CUDA
+   graph against its eager result), and times kernel, plain version and
+   (where one exists) a library call,
 4. replays a small sequence on the card and on the CPU and compares them,
 5. drives the main path — ``pipeline.slam.replay`` of a synthetic VLP-16
    sequence at full width, loop closure off — with the launch counts set to
@@ -297,12 +299,21 @@ def hand_made_label_cases(V, H, dev):
     return cases
 
 
+TILED_IMAGE = (128, 4096)   # too large for 8 bands of shared memory
+
+
 def label_phase(scans, cfg, dev, floor):
     from lego_loam_tpu_torch.core.config import hdl64
     from lego_loam_tpu_torch.frontend import cuda_label
     from lego_loam_tpu_torch.io.synthetic import make_sequence
 
     V, H = cfg.laser.image_size
+    gen = torch.Generator(device="cpu").manual_seed(11)
+
+    def random_case(rows, cols):
+        rnd = lambda p: (torch.rand((rows, cols), generator=gen) < p).to(dev)
+        return label_inputs(rnd(0.8), rnd(0.45), rnd(0.45))
+
     cases = {}
     for k in (0, len(scans) // 2, len(scans) - 1):
         cases[f"scan{k}"] = scan_label_inputs(scans[k], cfg, dev)
@@ -310,63 +321,64 @@ def label_phase(scans, cfg, dev, floor):
     big = hdl64()
     big_scans, _, _ = make_sequence(1, big, seed=7, noise=0.01)
     cases["hdl64_scan"] = scan_label_inputs(big_scans[0], big, dev)
-    gen = torch.Generator(device="cpu").manual_seed(11)
     Vb, Hb = big.laser.image_size
-    rnd = lambda p: (torch.rand((Vb, Hb), generator=gen) < p).to(dev)
-    cases["hdl64_random"] = label_inputs(rnd(0.8), rnd(0.45), rnd(0.45))
+    cases["hdl64_random"] = random_case(Vb, Hb)
+    # images of fewer than 8 rows: clusters of 1, 2 and 4 blocks
+    for rows in (1, 2, 4):
+        cases[f"rows{rows}_random"] = random_case(rows, H)
+    # an image whose bands do not fit a cluster's shared memory: the size
+    # rule sends it to the tiled kernel (tiles of 2 rows here, so every
+    # second row border is joined in global memory)
+    Vt, Ht = TILED_IMAGE
+    cases["tiled_random"] = random_case(Vt, Ht)
+    for name, case in hand_made_label_cases(Vt, Ht, dev).items():
+        cases[f"tiled_{name}"] = case
 
     report = []
     for name, (lab0, right, down) in cases.items():
         ref = cuda_label.propagate_labels_torch(lab0, right, down,
                                                 max_sweeps=100000)
-        # bool and int32 edge images; the kernel the image size picks
-        # (0), smaller clusters and the tiled kernel (-1): all bit-equal to
-        # the plain version
-        fits_one = lab0.numel() * 5 <= 232448
+        # bool and int32 edge images: both bit-equal to the plain version
         for edges in ("bool", "int32"):
             r, d = ((right, down) if edges == "bool" else
                     (right.to(torch.int32), down.to(torch.int32)))
-            for blocks in ((0, 1, 2, 4, -1) if fits_one else (0, 4, -1)):
-                got = cuda_label.propagate_labels_cuda(lab0, r, d,
-                                                       _blocks=blocks)
-                torch.cuda.synchronize()
-                n_bad = int(torch.sum(got != ref))
-                if n_bad:
-                    raise AssertionError(
-                        f"label kernel != plain on {name} ({edges} edges, "
-                        f"blocks={blocks}): {n_bad} pixels differ")
+            got = cuda_label.propagate_labels_cuda(lab0, r, d)
+            torch.cuda.synchronize()
+            n_bad = int(torch.sum(got != ref))
+            if n_bad:
+                raise AssertionError(
+                    f"label kernel != plain on {name} ({edges} edges): "
+                    f"{n_bad} pixels differ")
         seg = lab0 != cuda_label.SENTINEL
         report.append({"case": name, "shape": list(lab0.shape),
                        "segmentable": int(seg.sum()),
                        "components": int(torch.unique(ref[seg]).numel()),
                        "bit_equal": True})
     comps = {r["case"]: r["components"] for r in report}
-    assert (comps["wrap"], comps["serpentine"], comps["empty"],
-            comps["all_one"]) == (2, 1, 0, 1), comps
+    for prefix in ("", "tiled_"):
+        assert tuple(comps[prefix + c] for c in (
+            "wrap", "serpentine", "empty", "all_one")) == (2, 1, 0, 1), comps
     capture_check("label_ccl", cuda_label.propagate_labels_cuda,
                   cases["scan0"], cases[f"scan{len(scans) - 1}"])
     capture_check("label_ccl (HDL-64 image)",
                   cuda_label.propagate_labels_cuda,
                   cases["hdl64_scan"], cases["hdl64_random"])
     capture_check("label_ccl (tiled kernel)",
-                  lambda *t: cuda_label.propagate_labels_cuda(*t, _blocks=-1),
-                  cases["hdl64_scan"], cases["hdl64_random"])
+                  cuda_label.propagate_labels_cuda,
+                  cases["tiled_random"], cases["tiled_serpentine"])
 
     lab0, right, down = cases[f"scan{len(scans) // 2}"]
     t = timed(lambda: cuda_label.propagate_labels_cuda(lab0, right, down))
-    # the alternatives the image size did not pick, at both image sizes
-    other = {f"blocks={b}": timed(lambda: cuda_label.propagate_labels_cuda(
-        lab0, right, down, _blocks=b)) for b in (1, 2, 4, -1)}
-    big_other = {f"blocks={b}": timed(
-        lambda: cuda_label.propagate_labels_cuda(*cases["hdl64_scan"],
-                                                 _blocks=b))
-        for b in (4, -1)}
     plain_ms = time_ms(
         lambda: cuda_label.propagate_labels_torch(lab0, right, down, 64))
     big_t = timed(lambda: cuda_label.propagate_labels_cuda(
         *cases["hdl64_scan"]))
     big_plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(
         *cases["hdl64_scan"], 64))
+    tiled_t = timed(lambda: cuda_label.propagate_labels_cuda(
+        *cases["tiled_random"]))
+    tiled_plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(
+        *cases["tiled_random"], 64), reps=5, warmup=1)
 
     def bound_ms(n_pixels):
         n_bytes = n_pixels * (4 + 1 + 1 + 4)   # labels0, 2 masks in; 1 out
@@ -387,13 +399,14 @@ def label_phase(scans, cfg, dev, floor):
                      f"launch (launch_floor_ms)",
         "resources": kernel_resources("label_cluster_kernel",
                                       "label_grid_kernel"),
-        "alternatives": other,
         "hdl64": {"shape": [Vb, Hb], **big_t, "plain_ms": big_plain_ms,
-                  "bound_ms": bound_ms(Vb * Hb), "alternatives": big_other}}
+                  "bound_ms": bound_ms(Vb * Hb)},
+        "tiled": {"shape": [Vt, Ht], **tiled_t, "plain_ms": tiled_plain_ms,
+                  "bound_ms": bound_ms(Vt * Ht)}}
     emit({"phase": "kernel", "kernel": "label_ccl", "cases": report,
           "graph_capture": True, **t, "plain_ms": plain_ms,
           "library_ms": None, "bound_ms": bound,
-          "alternatives": other, "hdl64_scan": entry["hdl64"]})
+          "hdl64_scan": entry["hdl64"], "tiled_random": entry["tiled"]})
     return entry
 
 
@@ -423,15 +436,18 @@ def exact_top6(q, c, cv, chunk=512):
     return torch.cat(vals), torch.cat(idxs)
 
 
-def check_knn(name, q, qv, c, cv):
-    """Kernel vs plain version (and vs an exact oracle).  Criteria: invalid
+def check_knn(name, q, qv, c, cv, result=None):
+    """Kernel vs plain version (and vs an exact oracle); ``result`` is the
+    kernel's ``(idx, d2)`` for these inputs where the caller already has it
+    (from a grouped launch), else one single call is made.  Criteria: invalid
     queries all +inf; only valid candidates; ascending; distances rtol 1e-5;
     index lists equal to an exact difference-first oracle wherever its
     distances are not tied; against the plain version nearest equal and
     5-sets equal wherever the neighbouring distances differ by more than
     PLAIN_RANK_TOL."""
     from lego_loam_tpu_torch.match import cuda_knn
-    idx_k, d2_k = cuda_knn.knn5(q, qv, c, cv)
+    idx_k, d2_k = (cuda_knn.knn5(q, qv, c, cv) if result is None
+                   else result)
     torch.cuda.synchronize()
     idx_p, d2_p = cuda_knn.knn5_torch(q, qv, c, cv)
     assert idx_k.dtype == torch.int32 and d2_k.dtype == torch.float32
@@ -483,13 +499,19 @@ def library_knn(q, qv, c, cv):
 
 
 def knn_grouped_checks(dev):
-    """The grouped entry point against single calls, the in-kernel merge
-    against itself over 20 calls, and both entry points replayed from a
-    CUDA graph, at the shapes one re-association of the mapping stage has."""
+    """The grouped entry point, at the shapes one re-association of the
+    mapping stage has: the launch the main path makes (corner and surf
+    together) against the plain version and the exact oracle, a grouped
+    launch against single calls, the in-kernel merge against itself over
+    20 calls, and both entry points replayed from a CUDA graph."""
     from lego_loam_tpu_torch.match import cuda_knn
     corner = knn_case(1024, 16384, 201, dev)
     surf = knn_case(2048, 32768, 202, dev)
     ragged = knn_case(1000, 5000, 203, dev)
+    pair = cuda_knn.knn5_grouped([corner, surf])
+    against_plain = [
+        check_knn("grouped_corner", *corner, result=pair[0]),
+        check_knn("grouped_surf", *surf, result=pair[1])]
     single = [cuda_knn.knn5_cuda(*p) for p in (corner, surf, ragged)]
     before = cuda_knn.launch_count
     grouped = cuda_knn.knn5_grouped([corner, surf, ragged])
@@ -513,10 +535,13 @@ def knn_grouped_checks(dev):
         "knn5_grouped",
         lambda *t: cuda_knn.knn5_grouped([t[:4], t[4:]]),
         corner + surf, other[0] + other[1])
-    pair = timed(lambda: cuda_knn.knn5_grouped([corner, surf]))
-    return {"case": "grouped_repeat_capture", "grouped_equals_single": True,
+    pair_ms = timed(lambda: cuda_knn.knn5_grouped([corner, surf]))
+    return {"case": "grouped_repeat_capture",
+            "grouped_against_plain_and_oracle": against_plain,
+            "max_abs_err": max(r["max_abs_err"] for r in against_plain),
+            "grouped_equals_single": True,
             "repeats_identical": 20, "graph_capture": True,
-            "corner_and_surf_in_one_launch": pair}
+            "corner_and_surf_in_one_launch": pair_ms}
 
 
 def knn_phase(dev, floor):
@@ -750,9 +775,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also trace N scans with torch.profiler")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel phases: no replay, no "
-                         "launch counts and no final ok line")
     args = ap.parse_args()
     if args.scans < 60:
         ap.error("--scans must be at least 60")
@@ -783,8 +805,6 @@ def main() -> int:
     cfg = cfg.replace(mapping=dataclasses.replace(
         cfg.mapping, enable_loop_closure=False))
     t0 = time.time()
-    if args.kernels_only:
-        args.scans = 3
     scans, gt, times = make_sequence(args.scans, cfg, seed=args.seed,
                                      noise=0.01, speed=1.2)
     emit({"phase": "data", "scans": args.scans, "seed": args.seed,
@@ -792,10 +812,6 @@ def main() -> int:
 
     floor = launch_floor_phase()
     entries = [label_phase(scans, cfg, dev, floor), knn_phase(dev, floor)]
-    if args.kernels_only:
-        emit({"phase": "done", "seconds": time.time() - t_start})
-        emit({"kernels": entries})
-        return 0
     parity_phase(dev)
     launches, state, packed = slice_phase(scans, gt, times, cfg, dev)
     if args.profile:

@@ -84,19 +84,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Tunable at build time (tune_kernels.py); match/cuda_knn.py mirrors
-// kThreads * kR as _QUERY_BLOCK and checks it against knn5_query_block().
-#ifndef KNN5_THREADS
-#define KNN5_THREADS 64
-#endif
-#ifndef KNN5_QUERIES_PER_THREAD
-#define KNN5_QUERIES_PER_THREAD 2
-#endif
-
 namespace {
 
-constexpr int kThreads = KNN5_THREADS;
-constexpr int kR = KNN5_QUERIES_PER_THREAD;
+// 64 threads x 2 queries was within 10 % of the best of a sweep over
+// {32, 64, 128} x {1, 2, 4} at every shape the pipeline has (PERF.md).
+constexpr int kThreads = 64;
+constexpr int kR = 2;               // queries a thread
 constexpr int kQueryBlock = kThreads * kR;
 constexpr int kTile = 256;          // candidates a ring buffer holds
 constexpr int kStages = 3;          // ring buffers
@@ -516,7 +509,7 @@ knn5_kernel(const __grid_constant__ Batch batch) {
 
 }  // namespace
 
-// kThreads * kR, for the wrapper to check its mirrored constant against.
+// kThreads * kR: the wrapper cuts Q into blocks of this many queries.
 extern "C" int knn5_query_block() { return kQueryBlock; }
 
 // `batch` points at a host copy of Batch (see the struct above);

@@ -587,13 +587,12 @@ int resident_blocks(int device) {
     return sms * per_sm;
 }
 
-// blocks: 0 lets the image size pick (the cluster kernel with as many bands
-// as rows allow, up to kMaxCluster, if the bands fit; else the tiled kernel);
-// 1..kMaxCluster asks for the cluster kernel with that many bands; -1 for the
-// tiled kernel.
+// The image size picks the kernel: the cluster kernel, with as many bands as
+// rows allow up to kMaxCluster, if a band fits one block's shared memory;
+// else the tiled kernel.  Nothing else does.
 template <typename Edge>
 int launch(const void* labels0_, const void* right_, const void* down_,
-           void* out_, int V, int H, int blocks, cudaStream_t stream) {
+           void* out_, int V, int H, cudaStream_t stream) {
     const int* labels0 = static_cast<const int*>(labels0_);
     const Edge* right = static_cast<const Edge*>(right_);
     const Edge* down = static_cast<const Edge*>(down_);
@@ -603,43 +602,35 @@ int launch(const void* labels0_, const void* right_, const void* down_,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < 0 || device >= kMaxDevices)
         return static_cast<int>(cudaErrorInvalidDevice);
-    if (blocks > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
 
-    if (blocks >= 0) {
-        int want = blocks > 0 ? blocks : kMaxCluster;
-        if (want > V) want = V;
-        int band_rows = (V + want - 1) / want;
-        const int bands = (V + band_rows - 1) / band_rows;
-        const size_t band = (size_t)band_rows * H;
-        if (tile_bytes(band) + 4 * (size_t)H <= (size_t)kMaxSharedBytes) {
-            static bool raised[kMaxDevices] = {false};  // asked once a device
-            if (!raised[device]) {
-                err = cudaFuncSetAttribute(
-                    label_cluster_kernel<Edge>,
-                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                    kMaxSharedBytes);
-                if (err != cudaSuccess) return static_cast<int>(err);
-                raised[device] = true;
-            }
-            cudaLaunchConfig_t config = {};
-            config.gridDim = dim3(bands);
-            config.blockDim = dim3(kBlockThreads);
-            config.dynamicSmemBytes = tile_bytes(band) + 4 * (size_t)H;
-            config.stream = stream;
-            cudaLaunchAttribute attribute[1];
-            attribute[0].id = cudaLaunchAttributeClusterDimension;
-            attribute[0].val.clusterDim.x = bands;
-            attribute[0].val.clusterDim.y = 1;
-            attribute[0].val.clusterDim.z = 1;
-            config.attrs = attribute;
-            config.numAttrs = 1;
-            err = cudaLaunchKernelEx(&config, label_cluster_kernel<Edge>,
-                                     labels0, right, down, out, V, H,
-                                     band_rows);
-            return static_cast<int>(err != cudaSuccess ? err
-                                                       : cudaGetLastError());
+    const int want = V < kMaxCluster ? V : kMaxCluster;
+    int band_rows = (V + want - 1) / want;
+    const int bands = (V + band_rows - 1) / band_rows;
+    const size_t band = (size_t)band_rows * H;
+    if (tile_bytes(band) + 4 * (size_t)H <= (size_t)kMaxSharedBytes) {
+        static bool raised[kMaxDevices] = {false};      // asked once a device
+        if (!raised[device]) {
+            err = cudaFuncSetAttribute(
+                label_cluster_kernel<Edge>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+            if (err != cudaSuccess) return static_cast<int>(err);
+            raised[device] = true;
         }
-        if (blocks > 0) return static_cast<int>(cudaErrorInvalidValue);
+        cudaLaunchConfig_t config = {};
+        config.gridDim = dim3(bands);
+        config.blockDim = dim3(kBlockThreads);
+        config.dynamicSmemBytes = tile_bytes(band) + 4 * (size_t)H;
+        config.stream = stream;
+        cudaLaunchAttribute attribute[1];
+        attribute[0].id = cudaLaunchAttributeClusterDimension;
+        attribute[0].val.clusterDim.x = bands;
+        attribute[0].val.clusterDim.y = 1;
+        attribute[0].val.clusterDim.z = 1;
+        config.attrs = attribute;
+        config.numAttrs = 1;
+        err = cudaLaunchKernelEx(&config, label_cluster_kernel<Edge>, labels0,
+                                 right, down, out, V, H, band_rows);
+        return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
     }
 
     static int resident[kMaxDevices] = {0};            // asked once a device
@@ -667,18 +658,15 @@ int launch(const void* labels0_, const void* right_, const void* down_,
 
 }  // namespace
 
-// edge_bytes: 1 (bool / uint8 edge images) or 4 (int32).  blocks: 0 in normal
-// use (see launch above); other values pick a kernel and a cluster size for
-// measurement.  All of them give the same labels.
+// edge_bytes: 1 (bool / uint8 edge images) or 4 (int32).
 extern "C" int label_ccl(const void* labels0, const void* right,
                          const void* down, void* out, int V, int H,
-                         int edge_bytes, int blocks, void* stream) {
+                         int edge_bytes, void* stream) {
     if (V <= 0 || H <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (edge_bytes == 1)
-        return launch<unsigned char>(labels0, right, down, out, V, H, blocks, s);
+        return launch<unsigned char>(labels0, right, down, out, V, H, s);
     if (edge_bytes == 4)
-        return launch<int>(labels0, right, down, out, V, H, blocks, s);
+        return launch<int>(labels0, right, down, out, V, H, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }
-

@@ -105,15 +105,14 @@ def propagate_labels_torch(labels0: Tensor, right: Tensor, down: Tensor,
     return lab
 
 
-def propagate_labels_cuda(labels0: Tensor, right: Tensor, down: Tensor,
-                          _blocks: int = 0) -> Tensor:
+def propagate_labels_cuda(labels0: Tensor, right: Tensor,
+                          down: Tensor) -> Tensor:
     """Launch the union-find kernel (``csrc/label.cu``) ONCE on the current
     stream.  Takes contiguous (V, H) CUDA tensors on one device: ``labels0``
     int32, ``right`` and ``down`` both bool or both int32.  An image whose
     rows fit the shared memory of a cluster of up to 8 thread blocks takes
     the cluster kernel, any other the tiled cooperative kernel: the image
-    size decides.  ``_blocks`` is for measurement only (same labels): 1 to 8
-    asks for a cluster of that many blocks, -1 for the tiled kernel."""
+    size decides, and nothing else does."""
     global launch_count
     from ..kernels import lib
 
@@ -134,7 +133,7 @@ def propagate_labels_cuda(labels0: Tensor, right: Tensor, down: Tensor,
     if V * H == 0:
         return out
     args = (labels0.data_ptr(), right.data_ptr(), down.data_ptr(),
-            out.data_ptr(), V, H, 1 if edge is torch.bool else 4, _blocks)
+            out.data_ptr(), V, H, 1 if edge is torch.bool else 4)
     if torch.cuda.current_device() == dev.index:
         err = lib().label_ccl(*args, torch.cuda.current_stream().cuda_stream)
     else:

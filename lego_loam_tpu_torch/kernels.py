@@ -27,7 +27,6 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
-_defines: tuple = ()                    # -D flags of the loaded variant
 build_seconds: Optional[float] = None   # set when this process built the library
 build_logs: dict = {}                   # source -> ptxas output of a verbose build
 
@@ -49,27 +48,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest(defines: tuple = ()) -> str:
-    h = hashlib.sha256(" ".join([*_NVCC_FLAGS, *defines]).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
 
 
-def build(verbose: bool = False, force: bool = False,
-          defines: tuple = ()) -> str:
+def build(verbose: bool = False, force: bool = False) -> str:
     """Compile ``csrc/*.cu`` into ``libkernels.so``; returns its path.
     An up-to-date library is kept unless ``force``; ``verbose`` prints what
     ``ptxas`` says of each kernel (registers, shared memory, spills) and
-    keeps it in ``build_logs``.  ``defines`` (``"NAME=value"`` strings)
-    override the sources' tuning constants; such a variant is built into a
-    directory of its own."""
+    keeps it in ``build_logs``."""
     global build_seconds
-    digest = _digest(defines)
+    digest = _digest()
     out_dir = os.path.abspath(build_dir())
-    if defines:
-        out_dir = os.path.join(out_dir, "variants", digest[:16])
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, "libkernels.so")
     stamp_path = lib_path + ".sha256"
@@ -80,8 +74,7 @@ def build(verbose: bool = False, force: bool = False,
 
     t0 = time.time()
     nvcc = _nvcc()
-    flags = (_NVCC_FLAGS + [f"-D{d}" for d in defines]
-             + (["-Xptxas", "-v"] if verbose else []))
+    flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     procs, objs = [], []
     for name in _SOURCES:
         obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
@@ -115,11 +108,10 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        cdll = ctypes.CDLL(build(defines=_defines))
+        cdll = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        # int label_ccl(labels0, right, down, out, V, H, edge_bytes, blocks,
-        #               stream)
-        cdll.label_ccl.argtypes = [p, p, p, p, i, i, i, i, p]
+        # int label_ccl(labels0, right, down, out, V, H, edge_bytes, stream)
+        cdll.label_ccl.argtypes = [p, p, p, p, i, i, i, p]
         cdll.label_ccl.restype = i
         # int knn5_batch(const Batch* batch, total_blocks, stream);
         # int knn5_query_block()
@@ -132,12 +124,3 @@ def lib() -> ctypes.CDLL:
         cdll.noop_launch.restype = i
         _lib = cdll
     return _lib
-
-
-def use_variant(defines: tuple = ()) -> ctypes.CDLL:
-    """Build (if need be) and load the library with the sources' tuning
-    constants overridden, for a sweep; ``()`` goes back to the defaults.
-    The caller also resets whatever it derived from the old library."""
-    global _lib, _defines
-    _lib, _defines = None, tuple(defines)
-    return lib()

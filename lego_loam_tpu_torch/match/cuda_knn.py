@@ -39,7 +39,6 @@ from .bruteforce import pairwise_sqdist
 Tensor = torch.Tensor
 
 _INF = 3e38
-_QUERY_BLOCK = 128             # csrc/knn5.cu: kThreads * kR queries a block
 _MAX_PROBLEMS = 4              # csrc/knn5.cu::kMaxProblems
 _SLICE_ALIGN = 16              # candidates: one 16-byte copy of mask bytes
 _TILE = 256                    # csrc/knn5.cu::kTile: a long slice is whole tiles
@@ -73,11 +72,12 @@ def knn5_torch(query: Tensor, query_valid: Tensor, cand: Tensor,
 
 class Geometry(NamedTuple):
     """How one search is cut into blocks: ``qblocks`` groups of
-    ``_QUERY_BLOCK`` queries times ``splits`` candidate slices of ``chunk``
+    ``query_block`` queries times ``splits`` candidate slices of ``chunk``
     candidates each."""
     qblocks: int
     splits: int
     chunk: int
+    query_block: int
 
     @property
     def blocks(self) -> int:
@@ -89,22 +89,24 @@ class Geometry(NamedTuple):
         padding); none when nothing is merged."""
         if self.splits == 1:
             return 0
-        return self.blocks * 6 * _QUERY_BLOCK
+        return self.blocks * 6 * self.query_block
 
 
-def launch_geometry(Q: int, M: int, sm_count: int) -> Geometry:
-    """Slices per query block so that ``_BLOCKS_PER_SM`` blocks exist for
+def launch_geometry(Q: int, M: int, sm_count: int,
+                    query_block: int) -> Geometry:
+    """``query_block`` is the kernel's own (``knn5_query_block()`` of the
+    library).  Slices per query block so that ``_BLOCKS_PER_SM`` blocks exist for
     every SM where Q * M allows: no slice shorter than ``_MIN_SLICE``
     (unless M is), no more than ``_MAX_SPLITS`` of them, every slice
     non-empty, and the slices cover [0, M) exactly once."""
-    qblocks = -(-Q // _QUERY_BLOCK)
+    qblocks = -(-Q // query_block)
     want = -(-_BLOCKS_PER_SM * sm_count // max(qblocks, 1))
     splits = max(1, min(want, _MAX_SPLITS, M // _MIN_SLICE))
     chunk = -(-max(M, 1) // splits)
     align = _TILE if chunk >= 2 * _TILE else _SLICE_ALIGN
     chunk = -(-chunk // align) * align
     splits = max(1, -(-M // chunk))
-    return Geometry(qblocks, splits, chunk)
+    return Geometry(qblocks, splits, chunk, query_block)
 
 
 class _Problem(ctypes.Structure):
@@ -131,12 +133,10 @@ class _Plan:
 
     def __init__(self, dev: torch.device, shapes):
         from ..kernels import lib
-        if lib().knn5_query_block() != _QUERY_BLOCK:
-            raise RuntimeError(
-                "csrc/knn5.cu was built for another query block than "
-                f"_QUERY_BLOCK = {_QUERY_BLOCK}")
         sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.geometry = [launch_geometry(Q, M, sm_count) for Q, M in shapes]
+        query_block = lib().knn5_query_block()
+        self.geometry = [launch_geometry(Q, M, sm_count, query_block)
+                         for Q, M in shapes]
         for (Q, M), g in zip(shapes, self.geometry):
             if (max(g.scratch_entries, 5 * Q, 3 * M) >= 2 ** 31
                     or g.blocks >= 2 ** 31):

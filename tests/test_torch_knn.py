@@ -127,8 +127,11 @@ def test_knn5_wrapper_dispatch_and_checks():
         cuda_knn.knn5_cuda_grouped([])                    # 1 to 4 problems
     # the two main-path searches are cut into enough blocks for the card
     for Q, M in ((1024, 16384), (2048, 32768)):
-        assert cuda_knn.launch_geometry(Q, M, 132).blocks >= 132
-    assert cuda_knn.launch_geometry(100, 500, 132).splits == 1
+        assert cuda_knn.launch_geometry(Q, M, 132, QUERY_BLOCK).blocks >= 132
+    assert cuda_knn.launch_geometry(100, 500, 132, QUERY_BLOCK).splits == 1
+
+
+QUERY_BLOCK = 128   # queries a block of csrc/knn5.cu (knn5_query_block())
 
 
 @pytest.mark.parametrize("M", [1, 5000, 16384, 32768])
@@ -138,9 +141,9 @@ def test_launch_geometry(Q, M):
     exactly once and none is empty, a slice starts on the 16-candidate grid
     of the kernel's copies, there are enough blocks for 132 SMs where Q * M
     allows, and the scratch stays under the 32-bit offset check."""
-    g = cuda_knn.launch_geometry(Q, M, 132)
-    assert g.qblocks == -(-Q // cuda_knn._QUERY_BLOCK)
-    assert g.qblocks * cuda_knn._QUERY_BLOCK >= Q
+    g = cuda_knn.launch_geometry(Q, M, 132, QUERY_BLOCK)
+    assert g.qblocks == -(-Q // QUERY_BLOCK)
+    assert g.qblocks * QUERY_BLOCK >= Q
     assert g.splits >= 1 and g.chunk % cuda_knn._SLICE_ALIGN == 0
     assert g.splits * g.chunk >= M                       # covers [0, M)
     assert (g.splits - 1) * g.chunk < M                  # last slice not empty
@@ -154,7 +157,7 @@ def test_launch_geometry(Q, M):
         assert g.blocks >= 132, g
     assert g.blocks == g.qblocks * g.splits
     assert g.scratch_entries == (0 if g.splits == 1 else
-                                 g.blocks * 6 * cuda_knn._QUERY_BLOCK)
+                                 g.blocks * 6 * QUERY_BLOCK)
     assert g.scratch_entries < 2 ** 31
 
 
