@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--scans N] [--profile N]
 
 Needs one CUDA card, ``nvcc`` and nothing else; exits non-zero without a
-card.  It
+card.  The three synthetic sequences it replays are made on the host in
+worker processes from the start, beside the kernel phases.  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions,
 2. builds the hand-written kernels from ``lego_loam_tpu_torch/csrc``,
@@ -16,14 +17,24 @@ card.  It
    graph against its eager result), and times kernel, plain version and
    (where one exists) a library call,
 4. replays a small sequence on the card and on the CPU and compares them,
-5. drives the main path — ``pipeline.slam.replay`` of a synthetic VLP-16
-   sequence at full width, loop closure off — with the launch counts set to
-   zero just before and read just after, and checks the trajectory against
-   ground truth,
-6. with ``--profile N``, traces N more scans with ``torch.profiler`` and
+5. drives the main paths, each with the launch counts (and the host-read,
+   ICP-iteration and re-solve counts) set to zero just before and read just
+   after, and checks each trajectory against ground truth:
+   ``slice`` — ``pipeline.slam.replay`` of a synthetic VLP-16 sequence at
+   full width with loop closure off; ``loop`` — the default ``vlp16()``
+   (loop closure ON) on one 31.4 s lap, which closes loops, so detection,
+   ICP (K2 at 4096 x 32768), the pose-graph solver and the grid rebuild
+   run,
+6. ``resolve``: one pose-graph re-solve and grid rebuild on the loop run's
+   final graph, timed; the solve must not raise the graph's residual,
+   ``loop_parity``: a small loop-closing lap on the card and on the CPU,
+   keyframe and loop-factor counts equal, fused poses within 0.1 m,
+7. ``cli``: ``python -m lego_loam_tpu_torch.run`` (its ``main``) on an
+   ``.npz`` of the slice's sequence, on the card; every artifact written,
+8. with ``--profile N``, traces N more scans with ``torch.profiler`` and
    prints the device's busy share and the kernels that take most of it,
-7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
-   line.
+9. prints one ``{"kernels": [...]}`` line (``launches``: both main paths)
+   and, last, the ``{"ok": ...}`` line.
 
 Every phase raises on failure; nothing is caught and skipped.  A kernel
 gets two times: ``ms``, the device time of one launch (``DEVICE_LAUNCHES``
@@ -41,13 +52,17 @@ H100 SXM at its full power limit.
 from __future__ import annotations
 
 import argparse
+import collections
+import concurrent.futures
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -544,7 +559,7 @@ def knn_grouped_checks(dev):
             "corner_and_surf_in_one_launch": pair_ms}
 
 
-def knn_phase(dev, floor):
+def knn_phase(dev):
     from lego_loam_tpu_torch.match import cuda_knn
     # the pipeline's own shapes first (per-keyframe scan caps against the
     # map caps), then the larger ones
@@ -598,7 +613,6 @@ def knn_phase(dev, floor):
         **{k: head[k] for k in TIME_KEYS}, "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": "operations",
         "library_ms": head["library_ms"], "bound_how": head["bound_how"],
-        "launch_floor_ms": floor,
         "resources": kernel_resources("knn5_kernel"),
         "corner_and_surf_in_one_launch": report[-1][
             "corner_and_surf_in_one_launch"],
@@ -638,7 +652,7 @@ def parity_phase(dev):
     cfg = small_config()
     scans, _, times = make_sequence(12, cfg, seed=5, noise=0.01, speed=1.2)
     runs = {}
-    for where in (dev, torch.device("cpu")):
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
         x, v, t = pack_sequence(scans, times, cfg, device=where)
         state, outs = replay(x, v, t, cfg, device=where)
         runs[where.type] = (state, {k: o.cpu() for k, o in outs.items()})
@@ -735,6 +749,296 @@ def slice_phase(scans, gt, times, cfg, dev):
     return launches, state, (x, v, t)
 
 
+LAP = dict(seed=21, noise=0.01, radius=6.5, speed=1.3)   # one 31.4 s lap
+LAP_SCANS = 360
+SMALL_LAP = dict(seed=33, noise=0.01, radius=2.2, speed=1.6)
+SMALL_LAP_SCANS = 110
+
+
+def small_loop_config():
+    """The JAX package's loop-closure test geometry
+    (``tests/test_loop_e2e.py::small_loop_cfg``) through the port's config."""
+    from lego_loam_tpu_torch.core import config as C
+    return C.LegoLoamConfig(
+        laser=C.LaserConfig(num_horizontal_scans=450),
+        feature=C.FeatureConfig(max_sharp=128, max_less_sharp=1024,
+                                max_flat=256, max_less_flat=4096,
+                                odom_surf_iters=15, odom_corner_iters=15),
+        mapping=C.MappingConfig(
+            max_map_corner=4096, max_map_surf=8192, max_keyframes=256,
+            scan2map_iters=6, loop_closure_time_gap=4.0,
+            loop_history_cap=16384, loop_source_cap=1024, icp_max_iters=30),
+        pipeline=C.PipelineConfig(max_points=8192, max_segmented=8192,
+                                  max_outlier=2048))
+
+
+def pose_errors(fused, gt):
+    """Per-scan position error as the bench takes it (estimate k against
+    truth k+1, both relative to the first true pose) and the ATE."""
+    from lego_loam_tpu_torch.core import se3
+    from lego_loam_tpu_torch.eval.metrics import ate
+    g = torch.from_numpy(np.asarray(gt, np.float32))
+    gt_rel = se3.relative(g[0], g).numpy()
+    n = len(fused)
+    err = np.linalg.norm(fused[:-1, 3:] - gt_rel[1:n, 3:], axis=1)
+    return err, ate(fused[:-1], gt_rel[1:n], align=False)
+
+
+def loop_phase(lap, dev):
+    """The default ``vlp16()`` — loop closure ON, nothing changed — on one
+    lap of ``benchmarks/loop_closure_drive.py`` (360 scans, lap time 31.4 s
+    past the 30 s loop gate), through ``replay``.  Every count is zeroed
+    just before the run and read just after; the K2 launches are also
+    counted by shape (a recording wrapper around the launch function, so
+    the ICP ones at 4096 x 32768 can be told from scan-to-map's)."""
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.loop import icp
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline import mapping
+    from lego_loam_tpu_torch.pipeline.slam import replay
+
+    scans, gt, times = lap
+    cfg = vlp16()
+    assert cfg.mapping.enable_loop_closure
+    n = len(scans)
+    x, v, t = pack_sequence(scans, times, cfg, device=dev)
+    replay(x[:10], v[:10], t[:10], cfg, device=dev)         # warm-up
+    torch.cuda.synchronize()
+
+    shapes = collections.Counter()
+    launch = cuda_knn.knn5_cuda_grouped
+
+    def recording(problems):
+        shapes[tuple((p[0].shape[0], p[2].shape[0]) for p in problems)] += 1
+        return launch(problems)
+
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_sync_count()
+    D.start_stage_timing()
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    icp.iteration_count = 0
+    mapping.resolve_count = 0
+    mapping.pcg_iteration_count = 0
+    cuda_knn.knn5_cuda_grouped = recording
+    try:
+        t0 = time.perf_counter()
+        state, outs = replay(x, v, t, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cuda_knn.knn5_cuda_grouped = launch
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    syncs = D.sync_count()
+    stages = D.stage_times_ms()
+    peak = torch.cuda.max_memory_allocated()
+    icp_iters = icp.iteration_count
+    resolves = mapping.resolve_count
+    pcg_iters = mapping.pcg_iteration_count
+
+    for name in ("odom", "fused", "mapped"):
+        assert bool(torch.isfinite(outs[name]).all()), f"{name} not finite"
+    fused = outs["fused"].cpu().numpy()
+    err, ate_m = pose_errors(fused, gt)
+    meta = state.mapping.meta
+    kf, factors = int(meta.kf_count), int(meta.factor_count)
+    diag = outs["loop_diag"].cpu().numpy()
+    attempts = int((diag[:, 0] > 0).sum())
+    with_candidate = int(((diag[:, 0] > 0) & (diag[:, 2] < 1e6)).sum())
+    cycles = n // cfg.mapping.mapping_frequency_divider
+    loop_ms = stages.get("loop_attempt", 0.0)
+    resolve_ms = stages.get("loop_resolve", 0.0)
+    rebuild_ms = stages.get("grid_rebuild", 0.0)
+    icp_shape = ((cfg.mapping.loop_source_cap, cfg.mapping.loop_history_cap),)
+    result = {
+        "phase": "loop", "config": "vlp16() unchanged (loop closure on)",
+        "sequence": dict(scans=n, **LAP), "image": list(cfg.laser.image_size),
+        "wall_s": wall, "scans_per_s": n / wall,
+        "ms_per_scan": 1e3 * wall / n,
+        "ms_per_scan_projection_segmentation": stages["projection"] / n,
+        "ms_per_scan_features_odometry": stages["odometry"] / n,
+        "ms_per_scan_mapping": stages["mapping"] / n,
+        "mapping_cycles": cycles,
+        "ms_per_mapping_cycle": stages["mapping"] / cycles,
+        "ms_per_mapping_cycle_without_attempt":
+            (stages["mapping"] - loop_ms - resolve_ms - rebuild_ms) / cycles,
+        "ms_per_closure_attempt": loop_ms / max(attempts, 1),
+        "ms_per_attempt_with_candidate":
+            loop_ms / max(with_candidate, 1),
+        "ms_per_resolve_optimize_poses": resolve_ms / max(resolves, 1),
+        "ms_per_grid_rebuild": rebuild_ms / max(resolves, 1),
+        "keyframes": kf, "factors": factors,
+        "loop_factors": factors - (kf - 1),
+        "closure_attempts": attempts,
+        "attempts_with_candidate": with_candidate,
+        "accepted": int((diag[:, 1] > 0).sum()),
+        "relinearised": int((diag[:, 7] > 0).sum()),
+        "implausible": int((diag[:, 7] < 0).sum()),
+        "resolves": resolves, "pcg_iterations": pcg_iters,
+        "pcg_iterations_per_resolve": pcg_iters / max(resolves, 1),
+        "icp_iterations": icp_iters,
+        "icp_iterations_per_attempt": icp_iters / max(with_candidate, 1),
+        "ate": ate_m, "err_at_150_m": float(err[150]),
+        "err_at_end_m": float(err[-1]),
+        "kf_dropped": int(meta.kf_dropped),
+        "factor_dropped": int(meta.factor_dropped),
+        "map_sat": int(meta.map_sat), "launches": launches,
+        "knn5_launches_by_shape": {
+            " + ".join(f"{q}x{m}" for q, m in k): c
+            for k, c in sorted(shapes.items())},
+        "knn5_launches_icp_shape": shapes[icp_shape],
+        "host_syncs": syncs, "host_syncs_per_scan": syncs / n,
+        "max_memory_allocated_bytes": peak}
+    emit(result)
+    assert result["loop_factors"] >= 1, "no loop closed on the lap"
+    assert (result["kf_dropped"] == result["factor_dropped"]
+            == result["map_sat"] == 0)
+    assert ate_m["rmse"] < 2.0, ate_m
+    assert result["err_at_end_m"] < result["err_at_150_m"], err[[150, -1]]
+    assert launches["label_ccl"] == n, launches
+    # ICP: one K2 launch per iteration plus the final fit, at the loop shape
+    assert shapes[icp_shape] == icp_iters + with_candidate >= 2, (
+        shapes, icp_iters, with_candidate)
+    assert sum(shapes.values()) == launches["knn5"]
+    return launches, state
+
+
+def resolve_phase(state, dev):
+    """One pose-graph re-solve and grid rebuild, as an accepted closure past
+    the relinearisation threshold runs them (``_close_loop``), on the final
+    graph of the ``loop`` run (K = 8192 nodes, 10240 factor slots, its loop
+    factors in): time between CUDA events (the host reads inside stall the
+    stream, so this is what a caller waits), PCG iterations and host reads;
+    the solve must not raise the weighted squared residual.  The lap's own
+    closures can stay under the threshold, so the replay may run none."""
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.graph import submap_grid
+    from lego_loam_tpu_torch.graph.posegraph import (_factor_blocks,
+                                                     optimize_poses)
+    cfg = vlp16()
+    meta, clouds = state.mapping.meta, state.mapping.clouds
+    window = cfg.mapping.surrounding_keyframe_search_num
+
+    def solve(m):
+        return optimize_poses(m.kf_pose, m.kf_count, m.graph, gn_iters=3,
+                              pcg_iters=64, return_iters=True)
+
+    solve(meta)                                          # warm-up
+    times, reads = [], []
+    for _ in range(3):
+        D.reset_sync_count()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        poses, iters = solve(meta)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        reads.append(D.sync_count())
+    rebuild_ms = time_ms(lambda: submap_grid.rebuild(
+        poses, meta.kf_count, clouds, cfg, window))
+
+    def cost(p):
+        g = meta.graph
+        r, _, _ = _factor_blocks(p, g, g.i.long(), g.j.long())
+        prior = (p[0] - g.prior) * g.prior_weight
+        return float(torch.sum(r * r) + torch.sum(prior * prior))
+
+    n = int(meta.kf_count)
+    before, after = cost(meta.kf_pose), cost(poses)
+    emit({"phase": "resolve", "nodes": meta.kf_pose.shape[0], "alive": n,
+          "factor_slots": meta.graph.i.shape[0],
+          "factors": int(meta.factor_count),
+          "optimize_poses_ms": statistics.median(times),
+          "optimize_poses_ms_all": times, "pcg_iterations": iters,
+          "host_reads": reads[-1], "grid_rebuild_ms": rebuild_ms,
+          "cost_before": before, "cost_after": after,
+          "max_pose_change": float(torch.max(torch.abs(
+              poses[:n] - meta.kf_pose[:n])))})
+    assert bool(torch.isfinite(poses).all())
+    assert after <= before * (1 + 1e-6), (before, after)
+
+
+def loop_parity_phase(small_lap, dev):
+    """The JAX package's loop-closure test lap (110 scans, 450 columns)
+    through ``replay`` on the card (kernels) and on the CPU (plain
+    versions): keyframe and loop-factor counts equal, fused poses within
+    0.1 m (sums in another order and nearest-neighbour ties may move a
+    pose; a closure found on one side only would move it far more)."""
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline.slam import replay
+    scans, gt, times = small_lap
+    cfg = small_loop_config()
+    runs = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        x, v, t = pack_sequence(scans, times, cfg, device=where)
+        t0 = time.perf_counter()
+        state, outs = replay(x, v, t, cfg, device=where)
+        meta = state.mapping.meta
+        kf, factors = int(meta.kf_count), int(meta.factor_count)
+        runs[name] = {
+            "keyframes": kf, "loop_factors": factors - (kf - 1),
+            "fused": outs["fused"].cpu().numpy(),
+            "accepted": int((outs["loop_diag"][:, 1] > 0).sum()),
+            "seconds": time.perf_counter() - t0}
+    g, c = runs["card"], runs["cpu"]
+    dev_m = float(np.max(np.linalg.norm(
+        g["fused"][:, 3:] - c["fused"][:, 3:], axis=1)))
+    err_g, ate_g = pose_errors(g["fused"], gt)
+    _, ate_c = pose_errors(c["fused"], gt)
+    emit({"phase": "loop_parity", "scans": len(scans), **SMALL_LAP,
+          "config": "tests/test_loop_e2e.py::small_loop_cfg geometry",
+          "card": {k: v for k, v in g.items() if k != "fused"},
+          "cpu": {k: v for k, v in c.items() if k != "fused"},
+          "max_fused_position_diff_m": dev_m,
+          "ate_rmse_card": ate_g["rmse"], "ate_rmse_cpu": ate_c["rmse"]})
+    assert g["keyframes"] == c["keyframes"], (g["keyframes"], c["keyframes"])
+    assert g["loop_factors"] == c["loop_factors"] >= 1, (
+        g["loop_factors"], c["loop_factors"])
+    assert dev_m < 0.1, dev_m
+
+
+def cli_phase(bench, dev):
+    """``python -m lego_loam_tpu_torch.run --input seq.npz --output DIR``
+    (its ``main``, in this process, on the card) on the slice's sequence:
+    loop closure on (the CLI's default ``vlp16()``), every artifact the
+    JAX package's CLI writes, the ATE in ``metrics.json``."""
+    from lego_loam_tpu_torch import run
+    from lego_loam_tpu_torch.io.npz_io import save_sequence
+    scans, gt, times = bench
+    files = ("trajectory_odom.tum", "trajectory_fused.tum",
+             "trajectory_mapped.tum", "trajectory_gt.tum", "map2d.pgm",
+             "map2d_origin.npy", "keyframe_poses.npy", "global_map.npy",
+             "metrics.json", "scan_debug_0.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "seq.npz")
+        save_sequence(seq, scans, gt, times)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        rc = run.main(["--input", seq, "--output", out, "--debug-scan", "0"])
+        seconds = time.perf_counter() - t0
+        missing = [f for f in files
+                   if not os.path.isfile(os.path.join(out, f))]
+        with open(os.path.join(out, "metrics.json")) as f:
+            metrics = json.load(f)
+        kf_poses = np.load(os.path.join(out, "keyframe_poses.npy"))
+        n_map = len(np.load(os.path.join(out, "global_map.npy")))
+    emit({"phase": "cli", "rc": rc, "seconds": seconds, "missing": missing,
+          "scans_per_sec": metrics.get("scans_per_sec"),
+          "ate": metrics.get("ate"), "keyframes": metrics.get("keyframes"),
+          "factors": metrics.get("factors"),
+          "global_map_points": n_map})
+    assert rc == 0 and not missing, missing
+    assert metrics["ate"]["rmse"] < 0.5, metrics["ate"]
+    assert kf_poses.shape == (metrics["keyframes"], 6)
+    assert np.isfinite(kf_poses).all() and n_map > 1000
+
+
 def profile_phase(state, packed, n, cfg, dev):
     """Trace ``n`` scans of a continued replay; device busy share = summed
     kernel time / wall time of the window."""
@@ -791,36 +1095,65 @@ def main() -> int:
     dev = torch.device("cuda")
     device_phase()
 
-    kernels.build(force=True, verbose=True)
-    kernels.lib()
-    emit({"phase": "build", "library": os.path.relpath(
-              os.path.join(kernels.build_dir(), "libkernels.so")),
-          "seconds": kernels.build_seconds, "sources": list(kernels._SOURCES),
-          "resources": kernel_resources("knn5_kernel", "label_cluster_kernel",
-                                        "label_grid_kernel", "noop_kernel")})
-
-    semantics_phase(dev)
-
     cfg = vlp16()
     cfg = cfg.replace(mapping=dataclasses.replace(
         cfg.mapping, enable_loop_closure=False))
-    t0 = time.time()
-    scans, gt, times = make_sequence(args.scans, cfg, seed=args.seed,
-                                     noise=0.01, speed=1.2)
-    emit({"phase": "data", "scans": args.scans, "seed": args.seed,
-          "seconds": time.time() - t0})
+    # the sequences are made on the host while the kernels build and the
+    # 5-NN kernel is checked and timed on the device; every phase that
+    # times the host (eager launches, replays) waits until they are made
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        jobs = {
+            "bench": pool.submit(make_sequence, args.scans, cfg,
+                                 seed=args.seed, noise=0.01, speed=1.2),
+            "lap": pool.submit(make_sequence, LAP_SCANS, vlp16(), **LAP),
+            "small_lap": pool.submit(make_sequence, SMALL_LAP_SCANS,
+                                     small_loop_config(), **SMALL_LAP)}
+
+        kernels.build(force=True, verbose=True)
+        kernels.lib()
+        emit({"phase": "build", "library": os.path.relpath(
+                  os.path.join(kernels.build_dir(), "libkernels.so")),
+              "seconds": kernels.build_seconds,
+              "sources": list(kernels._SOURCES),
+              "resources": kernel_resources(
+                  "knn5_kernel", "label_cluster_kernel", "label_grid_kernel",
+                  "noop_kernel")})
+        semantics_phase(dev)
+        knn_entry = knn_phase(dev)
+        data = {k: j.result() for k, j in jobs.items()}
+    emit({"phase": "data", "seconds": time.time() - t_start,
+          "sequences": {"bench": dict(scans=args.scans, seed=args.seed,
+                                      noise=0.01, speed=1.2),
+                        "lap": dict(scans=LAP_SCANS, **LAP),
+                        "small_lap": dict(scans=SMALL_LAP_SCANS,
+                                          **SMALL_LAP)}})
 
     floor = launch_floor_phase()
-    entries = [label_phase(scans, cfg, dev, floor), knn_phase(dev, floor)]
+    knn_entry["launch_floor_ms"] = floor
+    scans, gt, times = bench = data.pop("bench")
+    entries = [label_phase(scans, cfg, dev, floor), knn_entry]
     parity_phase(dev)
     launches, state, packed = slice_phase(scans, gt, times, cfg, dev)
     if args.profile:
         profile_phase(state, packed, args.profile, cfg, dev)
+    del state, packed
+    loop_launches, state = loop_phase(data.pop("lap"), dev)
+    resolve_phase(state, dev)
+    del state
+    torch.cuda.empty_cache()
+    loop_parity_phase(data.pop("small_lap"), dev)
+    cli_phase(bench, dev)
     for e in entries:
-        e["launches"] = launches[e["name"]]
-        if e["launches"] < 1:
-            raise AssertionError(f"{e['name']} never launched on the "
-                                 f"main path")
+        by_path = {"slice": launches[e["name"]],
+                   "loop": loop_launches[e["name"]]}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
+        for path, count in by_path.items():
+            if count < 1:
+                raise AssertionError(f"{e['name']} never launched on the "
+                                     f"{path} path")
     emit({"phase": "done", "seconds": time.time() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {

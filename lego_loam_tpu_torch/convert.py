@@ -8,10 +8,8 @@ are **NumPy arrays** — into the port's container of the same name;
 same field names.  The caller does the ``jax → numpy`` step
 (``jax.tree.map(np.asarray, …)``); nothing here knows about JAX.
 
-Two fields differ by design: ``SlamState.scan_index`` is a host ``int`` in
-the port, and ``MappingMeta.grid`` (the incremental submap of the
-loop-closure path, not ported yet) is dropped on the way in and ``None`` on
-the way out.
+One field differs by design: ``SlamState.scan_index`` is a host ``int`` in
+the port.
 """
 
 from __future__ import annotations
@@ -26,6 +24,7 @@ from .core import types as T
 from .core.device import DeviceLike, resolve_device
 from .graph import keyframes as K
 from .graph import posegraph as G
+from .graph import submap_grid as SG
 from .pipeline import mapping as M
 from .pipeline import slam as S
 
@@ -41,6 +40,7 @@ KINDS = {
     "KeyframeClouds": K.KeyframeClouds,
     "KeyframeRow": K.KeyframeRow,
     "FactorGraph": G.FactorGraph,
+    "SubmapGrid": SG.SubmapGrid,
     "MappingMeta": M.MappingMeta,
     "MappingState": M.MappingState,
     "SlamState": S.SlamState,
@@ -56,6 +56,7 @@ _NESTED = {
     ("OdometryState", "last_corner"): "FeatureCloud",
     ("OdometryState", "last_surf"): "FeatureCloud",
     ("MappingMeta", "graph"): "FactorGraph",
+    ("MappingMeta", "grid"): "SubmapGrid",
     ("MappingState", "meta"): "MappingMeta",
     ("MappingState", "clouds"): "KeyframeClouds",
     ("SlamState", "odo"): "OdometryState",
@@ -85,9 +86,7 @@ def from_numpy_tree(kind: str, tree: Any, device: DeviceLike = None):
     cls = KINDS[kind]
     kw = {}
     for f in dataclasses.fields(cls):
-        if (kind, f.name) == ("MappingMeta", "grid"):
-            kw[f.name] = None
-        elif (kind, f.name) == ("SlamState", "scan_index"):
+        if (kind, f.name) == ("SlamState", "scan_index"):
             kw[f.name] = int(np.asarray(_field(tree, f.name)))
         elif (kind, f.name) in _NESTED:
             kw[f.name] = from_numpy_tree(_NESTED[(kind, f.name)],

@@ -25,7 +25,7 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, resolve_device
 from ..core.types import Container
-from ..match.voxelhash import voxel_downsample
+from ..match.voxelhash import voxel_downsample, voxel_hash_downsample
 from ..solve.scan2map import MapCloud
 
 Tensor = torch.Tensor
@@ -253,6 +253,48 @@ def _transform_block(pose: Tensor, pts: Tensor, valid: Tensor):
     pose (W,6), pts (W,C,3), valid (W,C)."""
     w = se3.apply(pose[:, None, :], pts)
     return torch.where(valid[..., None], w, 0.0)
+
+
+def assemble_global_map(store: KeyframeStore, center: Tensor,
+                        cfg: LegoLoamConfig, max_frames: int = 512,
+                        capacity: int = 131072):
+    """World-frame global feature map for visualization/export — the
+    ``publishGlobalMap`` path (``mapOptmization.cpp:633-693``): keyposes
+    within ``global_map_visualization_search_radius`` (500 m) of
+    ``center``, their corner+surf+outlier clouds transformed to world and
+    voxel-downsampled at 0.4 m (:688) by the spatial-hash filter.
+
+    Returns (xyz (capacity, 3), valid (capacity,)).
+    """
+    m = cfg.mapping
+    K = store.capacity
+    dev = store.pose.device
+    alive = torch.arange(K, device=dev) < store.count
+    dp = store.pose[:, 3:] - center[3:]
+    d = torch.sqrt(torch.sum(dp * dp, dim=-1))
+    d = torch.where(alive & (d <= m.global_map_visualization_search_radius),
+                    d, math.inf)
+    # the max_frames nearest; a stable sort keeps equal distances in index
+    # order, as the JAX package's top_k does
+    d_sel, sel = torch.sort(d, stable=True)
+    d_sel, sel = d_sel[:max_frames], sel[:max_frames]
+    sel_ok = torch.isfinite(d_sel)
+
+    pose = store.pose[sel]
+    blocks, valids = [], []
+    for blk, vld in ((store.corner, store.corner_valid),
+                     (store.surf, store.surf_valid),
+                     (store.outlier, store.outlier_valid)):
+        ok = vld[sel] & sel_ok[:, None]
+        blocks.append(_transform_block(pose, as_points(blk[sel]), ok)
+                      .reshape(-1, 3))
+        valids.append(ok.reshape(-1))
+    xyz = torch.cat(blocks, dim=0)
+    ok = torch.cat(valids, dim=0)
+    out_xyz, _, out_ok = voxel_hash_downsample(
+        xyz, xyz.new_zeros((xyz.shape[0], 0)), ok, m.surf_leaf_size,
+        capacity)
+    return out_xyz, out_ok
 
 
 def assemble_submap(store: KeyframeStore, cur_pose: Tensor,

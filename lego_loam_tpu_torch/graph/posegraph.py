@@ -1,12 +1,34 @@
-"""Pose-graph factor storage.
+"""Pose-graph storage and optimisation — the iSAM2 replacement.
 
 The reference hands keyframe poses to gtsam iSAM2 (PriorFactor +
-BetweenFactor chain + loop BetweenFactors, ``mapOptmization.cpp:1335-1478``).
-Without loop factors the chain's exact MAP solution is the composed
-odometry, so the loop-closure-off pipeline only RECORDS the prior and the
-between factors; the solver that consumes them (Gauss-Newton over all
-keyframe poses with a cyclic-reduction preconditioned CG) belongs to the
-loop-closure path and is not ported yet.
+BetweenFactor chain + loop BetweenFactors, ``mapOptmization.cpp:1335-1478``,
+``:837-850``) and reads corrected poses back after loop closures
+(``correctPoses`` :1481-1511).  Without loop factors the chain's exact MAP
+solution is the composed odometry, so the solver runs only when a loop
+factor arrives.
+
+The solver is the JAX package's: batched Gauss-Newton over all keyframe
+poses at once.  Per-factor 6-vector residuals and 6×6 Jacobian blocks come
+from one vmapped forward-mode derivative (``torch.func``); the sparse normal
+equations H δ = −g are solved matrix-free with preconditioned conjugate
+gradient (H·x = two gathers, four batched 6×6 products, two scatter-adds).
+The preconditioner is the EXACT inverse of the block-tridiagonal chain part
+of H, factored by parallel block cyclic reduction (:func:`_cr_factor`,
+log₂K levels of batched 6×6 products): H differs from the chain only by
+the low-rank loop factors, so PCG converges in a handful of iterations
+whatever the chain length.
+
+Port notes: blocks are kept as (K, 6, 6) (PyTorch's batched-matrix idiom;
+the JAX package keeps them batch-minor (6, 6, K) for the TPU's lanes), and
+products are ``torch.matmul`` in float32 (TF32 is off for the whole
+package).  The block inverses of the cyclic reduction are
+``torch.linalg.inv_ex``, which checks nothing and so never waits for the
+device (the JAX package unrolls a Cholesky inverse); the blocks are SPD, and
+the inverse only preconditions, so its rounding moves the PCG iteration
+count, not the solution.  The PCG's early exit on the relative residual is
+a Python loop with one counted host read per iteration
+(``core/device.py::host_bool``): at most ``pcg_iters`` + 1 per Gauss-Newton
+step.
 """
 
 from __future__ import annotations
@@ -16,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from ..core.device import DeviceLike, resolve_device
+from ..core import se3
+from ..core.device import DeviceLike, host_bool, resolve_device
 from ..core.types import Container
 
 Tensor = torch.Tensor
@@ -72,3 +95,254 @@ def add_factor(g: FactorGraph, count: Tensor, i: Tensor, j: Tensor, z: Tensor,
         i=put(g.i, i), j=put(g.j, j), z=put(g.z, z),
         weight=put(g.weight, weight), valid=put(g.valid, True))
     return g, count + ok.to(count.dtype)
+
+
+def between_residual(pi: Tensor, pj: Tensor, z: Tensor) -> Tensor:
+    """Geometric between-factor error: [so3_log(Rz⁻¹ Ri⁻¹ Rj),
+    Rz⁻¹(Ri⁻¹(t_j − t_i) − t_z)] — exact on the manifold even for the large
+    errors a fresh loop closure introduces.  Batched over leading dims."""
+    Ri = se3.rpy_to_matrix(pi[..., :3])
+    Rj = se3.rpy_to_matrix(pj[..., :3])
+    Rz = se3.rpy_to_matrix(z[..., :3])
+    RiT = Ri.transpose(-1, -2)
+    RzT = Rz.transpose(-1, -2)
+    R_err = RzT @ (RiT @ Rj)
+    t_rel = (RiT @ (pj[..., 3:] - pi[..., 3:])[..., None])[..., 0]
+    t_err = (RzT @ (t_rel - z[..., 3:])[..., None])[..., 0]
+    return torch.cat([se3.so3_log(R_err), t_err], -1)
+
+
+def _residual_jac(pi: Tensor, pj: Tensor, z: Tensor):
+    """∂r/∂pi and ∂r/∂pj, (F, 6, 6) each: forward-mode derivatives of the
+    BATCHED residual along the 12 unit tangents, one ``vmap``-ed ``jvp``.
+    (Differentiating a per-factor function instead, ``vmap(jacfwd(...))``,
+    puts 0-dim intermediates under forward AD, which some PyTorch versions
+    promote to float64.)"""
+    F = pi.shape[0]
+    basis = torch.eye(12, dtype=pi.dtype, device=pi.device)[:, None, :] \
+        .expand(12, F, 12)
+
+    def along(t):
+        return torch.func.jvp(lambda a, b: between_residual(a, b, z),
+                              (pi, pj), (t[..., :6], t[..., 6:]))[1]
+
+    J = torch.func.vmap(along)(basis).permute(1, 2, 0)       # (F, 6, 12)
+    return J[..., :6], J[..., 6:]
+
+
+def _factor_blocks(poses: Tensor, g: FactorGraph, gi: Tensor, gj: Tensor):
+    """Residuals + Jacobian blocks for every factor, batched.
+
+    Returns (r (F,6), Ai (F,6,6) = ∂r/∂pose_i, Aj (F,6,6) = ∂r/∂pose_j),
+    already weighted (invalid factors have zero rows)."""
+    pi = poses[gi]
+    pj = poses[gj]
+    r = between_residual(pi, pj, g.z)
+    Ai, Aj = _residual_jac(pi, pj, g.z)
+    m = g.weight * g.valid.to(g.weight.dtype)[:, None]
+    return r * m, Ai * m[:, :, None], Aj * m[:, :, None]
+
+
+def _bmv(a: Tensor, v: Tensor) -> Tensor:
+    """(…, i, k) @ (…, k)."""
+    return (a @ v[..., None])[..., 0]
+
+
+def _bmv_t(a: Tensor, v: Tensor) -> Tensor:
+    """aᵀ v: (…, k, i) @ (…, k)."""
+    return (a.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+def _bmm_tn(a: Tensor, b: Tensor) -> Tensor:
+    """aᵀ b over the last two dims."""
+    return a.transpose(-1, -2) @ b
+
+
+def _hvp(x: Tensor, gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
+         prior_w2: Tensor, K: int) -> Tensor:
+    """H·x where H = Σ_f [Ai Aj]ᵀ[Ai Aj] + prior — matrix-free."""
+    u = _bmv(Ai, x[gi]) + _bmv(Aj, x[gj])
+    y = torch.zeros((K, 6), dtype=x.dtype, device=x.device)
+    y.index_add_(0, gi, _bmv_t(Ai, u))
+    y.index_add_(0, gj, _bmv_t(Aj, u))
+    y[0] += prior_w2 * x[0]
+    return y
+
+
+def _block_diag(gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
+                prior_w2: Tensor, K: int) -> Tensor:
+    """The K diagonal 6×6 blocks of H."""
+    D = torch.zeros((K, 6, 6), dtype=Ai.dtype, device=Ai.device)
+    D.index_add_(0, gi, _bmm_tn(Ai, Ai))
+    D.index_add_(0, gj, _bmm_tn(Aj, Aj))
+    D[0] += torch.diag(prior_w2)
+    return D
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _chain_subdiag(g: FactorGraph, Ai: Tensor, Aj: Tensor, K: int) -> Tensor:
+    """Sub-diagonal blocks of H restricted to chain factors:
+    ``A[k] = H[k, k−1]`` summed over factors with ``|i−j| == 1``.
+
+    Loop factors (|i−j| > 1) stay OUT — they are the low-rank part the PCG
+    iterations absorb; invalid factors contribute zero blocks (their
+    Jacobians are already masked in :func:`_factor_blocks`)."""
+    up = g.j == g.i + 1          # factor (k−1 → k): H[j,i] += Ajᵀ Ai
+    dn = g.i == g.j + 1          # factor (k → k−1): H[i,j] += Aiᵀ Aj
+    A = torch.zeros((K + 1, 6, 6), dtype=Ai.dtype, device=Ai.device)
+    A.index_add_(0, torch.where(up, g.j, K).to(torch.int64), _bmm_tn(Aj, Ai))
+    A.index_add_(0, torch.where(dn, g.i, K).to(torch.int64), _bmm_tn(Ai, Aj))
+    return A[:K]
+
+
+def _inv6(B: Tensor) -> Tensor:
+    """Inverse of SPD 6×6 blocks; no error check, so no host wait."""
+    return torch.linalg.inv_ex(B).inverse
+
+
+def _cr_factor(A: Tensor, B: Tensor):
+    """Block cyclic-reduction factorization of the SPD block-tridiagonal
+    matrix T (diagonal ``B`` (K,6,6), sub-diagonal ``A`` (K,6,6) with
+    ``A[0] = 0``; super-diagonal = ``Aᵀ`` by symmetry).
+
+    log₂K parallel levels, each eliminating the odd-indexed unknowns with
+    batched 6×6 products — no sequential sweep over the keyframe axis.
+    Returns (levels, B₁⁻¹) for :func:`_cr_solve`.  With the exact chain
+    inverse as preconditioner the spectrum collapses to 1 + a low-rank
+    loop-factor perturbation (block-Jacobi needs O(K) PCG iterations to
+    carry a correction through the stiff chain)."""
+    K = A.shape[0]
+    K2 = _next_pow2(K)
+    if K2 != K:
+        A = torch.cat([A, A.new_zeros((K2 - K, 6, 6))])
+        B = torch.cat([B, torch.eye(6, dtype=B.dtype, device=B.device)
+                       .expand(K2 - K, 6, 6)])
+    levels = []
+    n = K2
+    zero = A.new_zeros((1, 6, 6))
+    while n > 1:
+        Ae, Ao = A[0::2], A[1::2]                  # (n/2, 6, 6)
+        Be, Bo = B[0::2], B[1::2]
+        Bo_inv = _inv6(Bo)
+        # P[m] = A_{2m} B_{2m−1}⁻¹ (0 for m = 0: A_0 = 0)
+        P = torch.cat([zero, Ae[1:] @ Bo_inv[:-1]])
+        # Q[m] = A_{2m+1}ᵀ B_{2m+1}⁻¹
+        Q = _bmm_tn(Ao, Bo_inv)
+        B = Be - P @ Ae.transpose(-1, -2) - Q @ Ao
+        A = torch.cat([zero, -(P[1:] @ Ao[:-1])])
+        levels.append((P, Q, Bo_inv, Ao, Ae))
+        n //= 2
+    return levels, _inv6(B)                        # (1, 6, 6)
+
+
+def _cr_solve(levels, B1_inv: Tensor, r: Tensor) -> Tensor:
+    """Apply T⁻¹ via the cyclic-reduction factorization: forward
+    r-reduction down the levels, 1×1 block solve, back-substitution up."""
+    K = r.shape[0]
+    K2 = levels[0][0].shape[0] * 2 if levels else 1
+    if K2 != K:
+        r = torch.cat([r, r.new_zeros((K2 - K, 6))])
+    zero = r.new_zeros((1, 6))
+    ros = []
+    for P, Q, Bo_inv, Ao, Ae in levels:
+        re, ro = r[0::2], r[1::2]
+        ros.append(ro)
+        ro_prev = torch.cat([zero, ro[:-1]])
+        r = re - _bmv(P, ro_prev) - _bmv(Q, ro)
+    x = _bmv(B1_inv, r)                            # (1, 6)
+    for (P, Q, Bo_inv, Ao, Ae), ro in zip(reversed(levels), reversed(ros)):
+        xe = x                                     # (n/2, 6)
+        xe_next = torch.cat([xe[1:], zero])
+        Ae_next = torch.cat([Ae[1:], Ae.new_zeros((1, 6, 6))])
+        t = ro - _bmv(Ao, xe) - _bmv_t(Ae_next, xe_next)
+        xo = _bmv(Bo_inv, t)
+        x = torch.stack([xe, xo], dim=1).reshape(-1, 6)
+    return x[:K]
+
+
+def chain_preconditioner(g: FactorGraph, Ai: Tensor, Aj: Tensor, D: Tensor,
+                         node_count: Tensor, K: int):
+    """Build M⁻¹ for the PCG from the block-tridiagonal CHAIN part of H.
+
+    ``D`` is the full block diagonal (prior + regularization included);
+    nodes ≥ ``node_count`` get an identity block so the padded tail stays
+    decoupled and exactly solvable."""
+    aliveK = torch.arange(K, device=D.device) < node_count
+    eye = torch.eye(6, dtype=D.dtype, device=D.device)
+    B = torch.where(aliveK[:, None, None], D, eye)
+    A = _chain_subdiag(g, Ai, Aj, K)
+    both = aliveK & torch.cat([aliveK.new_zeros((1,)), aliveK[:-1]])
+    A = torch.where(both[:, None, None], A, 0.0)
+    levels, B1_inv = _cr_factor(A, B)
+    alive = aliveK[:, None].to(D.dtype)
+
+    def M_inv(rv):
+        return _cr_solve(levels, B1_inv, rv) * alive
+
+    return M_inv
+
+
+def _pcg(matvec, b: Tensor, M_inv, iters: int, rtol: float = 1e-6):
+    """Preconditioned conjugate gradient on (K,6) vectors.
+
+    Convergence on RELATIVE residual (‖r‖ ≤ rtol·‖b‖) — the stiff odometry
+    weights put absolute gradient scales at ~1e6.  One counted host read
+    per test of the exit condition.  Returns (x, iterations run)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = M_inv(r)
+    p = z
+    rz = torch.sum(r * z)
+    tol2 = rtol * rtol * torch.sum(b * b)
+    it = 0
+    while it < iters and host_bool(torch.sum(r * r) > tol2):
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M_inv(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x, it
+
+
+def optimize_poses(poses: Tensor, node_count: Tensor, g: FactorGraph,
+                   gn_iters: int = 8, pcg_iters: int = 64,
+                   return_iters: bool = False):
+    """Batched GN over all poses.  Nodes ≥ ``node_count`` are frozen (their
+    factor slots are invalid anyway).  Returns corrected (K,6); with
+    ``return_iters`` also the list of PCG iteration counts, one per GN step
+    (host ints)."""
+    K = poses.shape[0]
+    dev = poses.device
+    gi = g.i.to(torch.int64)
+    gj = g.j.to(torch.int64)
+    alive = (torch.arange(K, device=dev) < node_count)[:, None]
+    prior_w2 = g.prior_weight ** 2
+    prior_w = torch.sqrt(prior_w2)
+    eye = torch.eye(6, dtype=poses.dtype, device=dev)
+    iters = []
+    for _ in range(gn_iters):
+        r, Ai, Aj = _factor_blocks(poses, g, gi, gj)
+        grad = torch.zeros((K, 6), dtype=poses.dtype, device=dev)
+        grad.index_add_(0, gi, _bmv_t(Ai, r))
+        grad.index_add_(0, gj, _bmv_t(Aj, r))
+        grad[0] += prior_w * ((poses[0] - g.prior) * prior_w)
+
+        D = _block_diag(gi, gj, Ai, Aj, prior_w2, K) + 1e-6 * eye
+        M_inv = chain_preconditioner(g, Ai, Aj, D, node_count, K)
+
+        def matvec(x):
+            return (_hvp(x, gi, gj, Ai, Aj, prior_w2, K) + 1e-8 * x) * alive
+
+        delta, it = _pcg(matvec, -grad * alive, M_inv, pcg_iters)
+        upd = poses + delta * alive
+        poses = torch.where(alive, se3.normalize_angles(upd), upd)
+        iters.append(it)
+    return (poses, iters) if return_iters else poses

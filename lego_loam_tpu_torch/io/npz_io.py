@@ -1,14 +1,16 @@
-"""Host-side scan packing: point lists → fixed-capacity tensors.
+"""Host-side scan containers: ``.npz`` sequence storage and packing of
+point lists into fixed-capacity tensors.
 
 Replaces the reference's rosbag replay input path (``main.cpp:59-95``):
-per-scan point arrays are packed with NumPy into fixed-capacity arrays and
-moved to the device in one copy.
+sequences live as ``.npz`` archives of per-scan point arrays + ground truth
+(the JAX package's layout), and are packed with NumPy into fixed-capacity
+arrays and moved to the device in one copy.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,3 +79,26 @@ def pack_sequence(scans: Sequence[np.ndarray], times: Sequence[float],
     return (torch.from_numpy(xyz.reshape(len(scans), cap * 3)).to(device),
             torch.from_numpy(valid).to(device),
             torch.from_numpy(np.asarray(times, np.float32)).to(device))
+
+
+def save_sequence(path: str, scans: Sequence[np.ndarray],
+                  gt_poses: Optional[np.ndarray], times: Sequence[float]):
+    """Write a sequence as the JAX package's ``.npz`` layout: one
+    ``scan_<i>`` array per scan, ``times``, ``n_scans``, ``gt_poses``."""
+    data = {f"scan_{i:06d}": s for i, s in enumerate(scans)}
+    data["times"] = np.asarray(times, np.float32)
+    data["n_scans"] = np.int64(len(scans))
+    if gt_poses is not None:
+        data["gt_poses"] = np.asarray(gt_poses, np.float32)
+    np.savez_compressed(path, **data)
+
+
+def load_sequence(path: str):
+    """Read a sequence written by :func:`save_sequence` (or the JAX
+    package's): returns (scans, gt_poses or None, times)."""
+    with np.load(path) as z:
+        n = int(z["n_scans"])
+        scans = [z[f"scan_{i:06d}"] for i in range(n)]
+        times = z["times"]
+        gt = z["gt_poses"] if "gt_poses" in z else None
+    return scans, gt, times

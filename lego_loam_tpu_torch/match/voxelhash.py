@@ -27,6 +27,15 @@ _BITS = 1 << 16
 _INVALID_K1 = 1 << 17      # sorts after every valid x key (≤ 65535)
 
 
+def recip32(x: float) -> float:
+    """``1 / x`` rounded to float32.  Compiled JAX code divides by a
+    constant as a multiplication by its float32 reciprocal, which rounds
+    differently from a division in about one quotient in seven; code that
+    must put points in the same cells as the JAX package's jitted functions
+    multiplies by this instead of dividing."""
+    return float(torch.tensor(1.0) / torch.tensor(x, dtype=torch.float32))
+
+
 def _voxel_coords(xyz: Tensor, leaf: float) -> Tensor:
     """Integer voxel coordinates as float32 in [0, 65535]."""
     q = torch.floor(xyz / leaf) + float(_OFFSET)

@@ -66,7 +66,9 @@ def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
       fused — drift-corrected pose (stage-4 output, 10 Hz),
       mapped — latest mapping pose (updates at 2 Hz),
       kf_count / factor_count — per-scan observability counters,
-      loop_diag — (8,) loop-closure diagnostics (zeros: loop closure off).
+      loop_diag — (8,) diagnostics of this scan's loop-closure attempt
+        ([attempted, accepted, fitness, corr_trans, corr_rot, old_idx,
+        latest_idx, re-solved/implausible]; zeros without one).
     """
     device = resolve_device(device)
     _check_device(state, device)

@@ -146,13 +146,21 @@ def test_numpy_copies_equal_originals():
 
 def test_convert_roundtrip_of_a_jax_state():
     """A JAX SlamState goes through NumPy into the port and back with every
-    leaf unchanged (except the fields the port keeps differently)."""
+    leaf unchanged; the submap grid crosses too and equals the port's own
+    empty grid (``scan_index`` is a host int in the port)."""
     jc, tc = small_cfgs()
     js = to_np(jslam.init_state(jc))
     ts = convert.from_numpy_tree("SlamState", js, device="cpu")
     fresh = convert.to_numpy_tree(tslam.init_state(tc, device="cpu"))
     back = convert.to_numpy_tree(ts)
-    assert ts.scan_index == 0 and ts.mapping.meta.grid is None
+    assert ts.scan_index == 0
+    jgrid = js.mapping.meta.grid
+    for name in ("corner_sum", "corner_cnt", "corner_tag", "surf_sum",
+                 "surf_cnt", "surf_tag"):
+        got = tnp(getattr(ts.mapping.meta.grid, name))
+        ref = getattr(jgrid, name)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_array_equal(got, ref, err_msg=name)
 
     def walk(a, b, path=""):
         if isinstance(a, dict):

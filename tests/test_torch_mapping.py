@@ -1,6 +1,6 @@
 """PyTorch port vs JAX package: voxel filters, submap assembly, scan-to-map
-and one mapping step, on the CPU, from the same JAX-made state pushed
-through ``convert.py``."""
+and one mapping step (loop closure off, and on without an attempt), on the
+CPU, from the same JAX-made state pushed through ``convert.py``."""
 
 import dataclasses
 
@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from lego_loam_tpu.frontend.segmentation import image_projection as jproject
+from lego_loam_tpu.core import se3 as jse3
 from lego_loam_tpu.graph import keyframes as jkf
+from lego_loam_tpu.graph import submap_grid as jgrid
 from lego_loam_tpu.io.npz_io import pack_raw_scan as jpack
 from lego_loam_tpu.io.synthetic import make_sequence
 from lego_loam_tpu.match import voxelhash as jvox
@@ -270,10 +272,64 @@ def test_mapping_step_matches_jax(mapped):
 
 
 def test_loop_closure_on_is_refused(mapped):
+    """Loop closure on (the ``vlp16()`` default) is no longer refused: a
+    loop-on cycle reads its submap from the incremental grid and inserts the
+    new keyframe into it, as the JAX package's ``mapping_step`` does.  Here
+    the third cycle (cycle 2, so no closure attempt: those run every third
+    cycle) on a grid holding the first two keyframes: the pose against the
+    JAX package's scan-to-map on the grid's submap (1e-3, as above), and
+    the grid after the insert against the JAX insert of the same row under
+    the same pose (counts and tags exact, sums 1e-5)."""
     meta, clouds, assoc = mapped
-    cfg = TCFG.replace(mapping=dataclasses.replace(
-        TCFG.mapping, enable_loop_closure=True))
-    with pytest.raises(NotImplementedError, match="loop"):
-        tmap.mapping_step(to_torch("MappingMeta", meta),
-                          to_torch("KeyframeClouds", clouds),
-                          to_torch("AssociationOut", assoc), cfg)
+    m = JCFG.mapping
+    loop_on = dict(enable_loop_closure=True)
+    jcfg = JCFG.replace(mapping=dataclasses.replace(m, **loop_on))
+    tcfg = TCFG.replace(mapping=dataclasses.replace(TCFG.mapping, **loop_on))
+    window = m.surrounding_keyframe_search_num
+    grid = jgrid.empty_grid(jcfg)
+    for k in range(2):
+        pts = [jkf.as_points(getattr(clouds, b)[k]) if b[-5:] != "valid"
+               else getattr(clouds, b)[k]
+               for b in ("corner", "corner_valid", "surf", "surf_valid",
+                         "outlier", "outlier_valid")]
+        grid = jgrid.insert(grid, jnp.int32(k), meta.kf_pose[k], *pts,
+                            cfg=jcfg, window=window)
+    meta = meta.replace(grid=grid)
+    assert int(meta.cycle) % m.loop_every_n_mapping != 0
+
+    # the JAX package's loop-on cycle up to scan-to-map, by its parts
+    pred = jmap.predict_pose(meta, assoc.odom)
+    cds, cok = jvox.voxel_downsample(assoc.corner_xyz, assoc.corner_valid,
+                                     m.corner_leaf_size, jkf.CORNER_CAP)
+    sds, sok = jvox.voxel_downsample(assoc.surf_xyz, assoc.surf_valid,
+                                     m.surf_leaf_size, jkf.SURF_CAP)
+    ods, ook = jvox.voxel_downsample(assoc.outlier_xyz, assoc.outlier_valid,
+                                     m.outlier_leaf_size, jkf.OUTLIER_CAP)
+    tot, tok = jvox.voxel_downsample(jnp.concatenate([sds, ods]),
+                                     jnp.concatenate([sok, ook]),
+                                     m.surf_leaf_size, jkf.SURF_CAP)
+    cmap, smap = jgrid.maps(grid, meta.kf_count, window)
+    assert int(np.asarray(smap.valid).sum()) > 100
+    ref = np.asarray(jse3.normalize_angles(js2m.scan_to_map(
+        pred, cds, cok, tot, tok, cmap, smap, JCFG)))
+
+    gmeta, grow, gpose, gdiag = tmap.mapping_step(
+        to_torch("MappingMeta", meta), to_torch("KeyframeClouds", clouds),
+        to_torch("AssociationOut", assoc), tcfg)
+    np.testing.assert_allclose(tnp(gpose), ref, atol=1e-3)
+    assert not tnp(gdiag).any()                     # no closure attempt
+    assert int(gmeta.kf_count) == 3 and int(grow.idx) == 2
+    assert int(gmeta.factor_count) == 2 and int(gmeta.map_sat) == 0
+
+    rows = [jnp.asarray(tnp(getattr(grow, b)).reshape(-1, 3))
+            if b[-5:] != "valid" else jnp.asarray(tnp(getattr(grow, b)))
+            for b in ("corner", "corner_valid", "surf", "surf_valid",
+                      "outlier", "outlier_valid")]
+    want = to_np(jgrid.insert(grid, jnp.int32(2), jnp.asarray(tnp(gpose)),
+                              *rows, cfg=jcfg, window=window))
+    for name in ("corner_cnt", "corner_tag", "surf_cnt", "surf_tag"):
+        np.testing.assert_array_equal(tnp(getattr(gmeta.grid, name)),
+                                      getattr(want, name), err_msg=name)
+    for name in ("corner_sum", "surf_sum"):
+        np.testing.assert_allclose(tnp(getattr(gmeta.grid, name)),
+                                   getattr(want, name), atol=1e-5)
