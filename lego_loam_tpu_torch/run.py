@@ -1,5 +1,5 @@
-"""Driver CLI of the PyTorch/CUDA port — the ``roslaunch lego_loam_bor
-run.launch rosbag:=…`` equivalent (``main.cpp:11-112``,
+"""Command-line entry point of the PyTorch/CUDA port — the ``roslaunch
+lego_loam_bor run.launch rosbag:=…`` equivalent (``main.cpp:11-112``,
 ``launch/run.launch``), with the JAX package's flags and artifacts.
 
 Offline replay of a whole sequence: a warm-up replay of at most 10 scans
