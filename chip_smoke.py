@@ -31,9 +31,16 @@ worker processes from the start, beside the kernel phases.  It
    keyframe and loop-factor counts equal, fused poses within 0.1 m,
 7. ``cli``: ``python -m lego_loam_tpu_torch.run`` (its ``main``) on an
    ``.npz`` of the slice's sequence, on the card; every artifact written,
-8. with ``--profile N``, traces N more scans with ``torch.profiler`` and
+8. ``hdl64``: ``hdl64()`` as shipped (KITTI geometry, 64 x 2083 image,
+   loop closure on, banded search off) on the 330-scan drive of
+   ``benchmarks/kitti64_drive.py``, whose 314-scan lap closes a loop; its
+   scans are made in chunks by the worker processes beside the others,
+   ``banded``: the first 120 scans of that drive with the banded odometry
+   search on (``odom_band_rings=4``, the pick caps its layout needs) and,
+   in the same call, off,
+9. with ``--profile N``, traces N more scans with ``torch.profiler`` and
    prints the device's busy share and the kernels that take most of it,
-9. prints one ``{"kernels": [...]}`` line (``launches``: both main paths)
+10. prints one ``{"kernels": [...]}`` line (``launches``: every main path)
    and, last, the ``{"ok": ...}`` line.
 
 Every phase raises on failure; nothing is caught and skipped.  A kernel
@@ -54,6 +61,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -507,6 +515,20 @@ def check_knn(name, q, qv, c, cv, result=None):
             "plain_rank_flips_above_1e-4": flips}
 
 
+def knn_bound(*problems):
+    """Least time of the searches on this card, in ms, and how it is
+    bound: each input read once and the five (index, distance) pairs a query
+    written once, against 8 flops per valid (query, candidate) pair."""
+    n_bytes = n_ops = 0
+    for q, qv, c, cv in problems:
+        Q, M = q.shape[0], c.shape[0]
+        n_bytes += Q * 12 + Q + M * 12 + M + Q * 5 * 8
+        n_ops += 8 * int(qv.sum()) * int(cv.sum())
+    bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+    return bound, (f"{n_ops} flops (8 per valid pair) / 67e12 vs "
+                   f"{n_bytes} bytes / 3.35e12")
+
+
 def library_knn(q, qv, c, cv):
     d = torch.cdist(q, c)
     d = torch.where(cv[None, :], d, math.inf)
@@ -551,6 +573,11 @@ def knn_grouped_checks(dev):
         lambda *t: cuda_knn.knn5_grouped([t[:4], t[4:]]),
         corner + surf, other[0] + other[1])
     pair_ms = timed(lambda: cuda_knn.knn5_grouped([corner, surf]))
+    pair_ms["plain_ms"] = time_ms(
+        lambda: [cuda_knn.knn5_torch(*p) for p in (corner, surf)])
+    pair_ms["library_ms"] = time_ms(
+        lambda: [library_knn(*p) for p in (corner, surf)])
+    pair_ms["bound_ms"], pair_ms["bound_how"] = knn_bound(corner, surf)
     return {"case": "grouped_repeat_capture",
             "grouped_against_plain_and_oracle": against_plain,
             "max_abs_err": max(r["max_abs_err"] for r in against_plain),
@@ -574,12 +601,7 @@ def knn_phase(dev):
         rep.update(timed(lambda: cuda_knn.knn5_cuda(*case)))
         rep["plain_ms"] = time_ms(lambda: cuda_knn.knn5_torch(*case))
         rep["library_ms"] = time_ms(lambda: library_knn(*case))
-        n_bytes = Q * 12 + Q + M * 12 + M + Q * 5 * 8
-        n_ops = 8 * rep["valid_queries"] * rep["valid_candidates"]
-        rep["bound_ms"] = max(n_bytes / HBM_BYTES_PER_S,
-                              n_ops / FP32_OPS_PER_S) * 1e3
-        rep["bound_how"] = (f"{n_ops} flops (8 per valid pair) / 67e12 vs "
-                            f"{n_bytes} bytes / 3.35e12")
+        rep["bound_ms"], rep["bound_how"] = knn_bound(case)
         report.append(rep)
         by_name[name] = rep
         del case, q, qv, c, cv
@@ -784,13 +806,42 @@ def pose_errors(fused, gt):
     return err, ate(fused[:-1], gt_rel[1:n], align=False)
 
 
+@contextlib.contextmanager
+def launch_shapes():
+    """Count K1 and K2 launches by shape while the block runs: a recording
+    wrapper around each launch function (the wrappers' own launch counts
+    are left as they are)."""
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.match import cuda_knn
+    shapes = {"label_ccl": collections.Counter(),
+              "knn5": collections.Counter()}
+    label, knn = cuda_label.propagate_labels_cuda, cuda_knn.knn5_cuda_grouped
+
+    def recording_label(labels0, right, down):
+        shapes["label_ccl"]["x".join(map(str, labels0.shape))] += 1
+        return label(labels0, right, down)
+
+    def recording_knn(problems):
+        shapes["knn5"][" + ".join(f"{p[0].shape[0]}x{p[2].shape[0]}"
+                                  for p in problems)] += 1
+        return knn(problems)
+
+    cuda_label.propagate_labels_cuda = recording_label
+    cuda_knn.knn5_cuda_grouped = recording_knn
+    try:
+        yield shapes
+    finally:
+        cuda_label.propagate_labels_cuda = label
+        cuda_knn.knn5_cuda_grouped = knn
+
+
 def loop_phase(lap, dev):
     """The default ``vlp16()`` — loop closure ON, nothing changed — on one
     lap of ``benchmarks/loop_closure_drive.py`` (360 scans, lap time 31.4 s
     past the 30 s loop gate), through ``replay``.  Every count is zeroed
     just before the run and read just after; the K2 launches are also
-    counted by shape (a recording wrapper around the launch function, so
-    the ICP ones at 4096 x 32768 can be told from scan-to-map's)."""
+    counted by shape (``launch_shapes``, so the ICP ones at 4096 x 32768 can
+    be told from scan-to-map's)."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.frontend import cuda_label
@@ -808,13 +859,6 @@ def loop_phase(lap, dev):
     replay(x[:10], v[:10], t[:10], cfg, device=dev)         # warm-up
     torch.cuda.synchronize()
 
-    shapes = collections.Counter()
-    launch = cuda_knn.knn5_cuda_grouped
-
-    def recording(problems):
-        shapes[tuple((p[0].shape[0], p[2].shape[0]) for p in problems)] += 1
-        return launch(problems)
-
     torch.cuda.reset_peak_memory_stats()
     D.reset_sync_count()
     D.start_stage_timing()
@@ -823,14 +867,12 @@ def loop_phase(lap, dev):
     icp.iteration_count = 0
     mapping.resolve_count = 0
     mapping.pcg_iteration_count = 0
-    cuda_knn.knn5_cuda_grouped = recording
-    try:
+    with launch_shapes() as by_shape:
         t0 = time.perf_counter()
         state, outs = replay(x, v, t, cfg, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        cuda_knn.knn5_cuda_grouped = launch
+    shapes = by_shape["knn5"]
     launches = {"label_ccl": cuda_label.launch_count,
                 "knn5": cuda_knn.launch_count}
     syncs = D.sync_count()
@@ -853,7 +895,7 @@ def loop_phase(lap, dev):
     loop_ms = stages.get("loop_attempt", 0.0)
     resolve_ms = stages.get("loop_resolve", 0.0)
     rebuild_ms = stages.get("grid_rebuild", 0.0)
-    icp_shape = ((cfg.mapping.loop_source_cap, cfg.mapping.loop_history_cap),)
+    icp_shape = f"{cfg.mapping.loop_source_cap}x{cfg.mapping.loop_history_cap}"
     result = {
         "phase": "loop", "config": "vlp16() unchanged (loop closure on)",
         "sequence": dict(scans=n, **LAP), "image": list(cfg.laser.image_size),
@@ -887,9 +929,7 @@ def loop_phase(lap, dev):
         "kf_dropped": int(meta.kf_dropped),
         "factor_dropped": int(meta.factor_dropped),
         "map_sat": int(meta.map_sat), "launches": launches,
-        "knn5_launches_by_shape": {
-            " + ".join(f"{q}x{m}" for q, m in k): c
-            for k, c in sorted(shapes.items())},
+        "knn5_launches_by_shape": dict(sorted(shapes.items())),
         "knn5_launches_icp_shape": shapes[icp_shape],
         "host_syncs": syncs, "host_syncs_per_scan": syncs / n,
         "max_memory_allocated_bytes": peak}
@@ -1039,6 +1079,176 @@ def cli_phase(bench, dev):
     assert np.isfinite(kf_poses).all() and n_map > 1000
 
 
+# --------------------------------------------------------------------------
+# phase 8: HDL-64 (KITTI geometry) end to end, and the banded search
+# --------------------------------------------------------------------------
+
+DRIVE = dict(seed=13, noise=0.01, speed=2.0, radius=10.0)   # 314-scan lap
+DRIVE_SCANS = 330            # the drive of benchmarks/kitti64_drive.py
+DRIVE_CHUNK = 15             # scans a worker makes per job
+DRIVE_CHECKED = 2            # first scans held against make_sequence's
+BANDED_SCANS = 120
+# the pick caps the ring-blocked layout needs: exactly V·picks·sectors
+BANDED_CAPS = dict(max_sharp=768, max_less_sharp=7680, max_flat=1536)
+
+
+def drive_trajectory():
+    from lego_loam_tpu_torch.core.config import hdl64
+    from lego_loam_tpu_torch.io.synthetic import circle_trajectory
+    return circle_trajectory(DRIVE_SCANS, radius=DRIVE["radius"],
+                             speed=DRIVE["speed"],
+                             period=hdl64().laser.scan_period)
+
+
+def drive_chunk(start: int, stop: int):
+    """Scans ``start .. stop-1`` of ``make_sequence(DRIVE_SCANS, hdl64(),
+    **DRIVE)``, made by the same calls ``io/synthetic.py::make_sequence``
+    makes (the world cleared along the whole lap, scan i seeded ``seed +
+    i``), so that worker processes can share one sequence."""
+    from lego_loam_tpu_torch.core.config import hdl64
+    from lego_loam_tpu_torch.io import synthetic
+    cfg = hdl64()
+    _, times, pose_fn = drive_trajectory()
+    period = cfg.laser.scan_period
+    lap = np.arange(0, 2.0 * np.pi * DRIVE["radius"] / DRIVE["speed"],
+                    period)
+    world = synthetic.default_world(DRIVE["seed"],
+                                    path_xy=pose_fn(lap)[:, 3:5])
+    return [synthetic.simulate_scan(pose_fn, times[i], cfg, world,
+                                    noise=DRIVE["noise"],
+                                    seed=DRIVE["seed"] + i)
+            for i in range(start, stop)]
+
+
+def drive_sequence(chunks, check):
+    """(scans, gt, times) of the drive from its chunks; the first scans
+    must equal ``make_sequence``'s (``check``) bit for bit."""
+    scans = [scan for chunk in chunks for scan in chunk]
+    gt, times, _ = drive_trajectory()
+    gt, times = gt.astype(np.float32), times.astype(np.float32)
+    ref_scans, ref_gt, ref_times = check
+    assert len(scans) == DRIVE_SCANS
+    for k, (a, b) in enumerate(zip(ref_scans, scans)):
+        assert np.array_equal(a, b, equal_nan=True), f"drive scan {k}"
+    assert np.array_equal(ref_gt, gt[:len(ref_gt)])
+    assert np.array_equal(ref_times, times[:len(ref_times)])
+    return scans, gt, times
+
+
+def timed_replay(seq, cfg, dev) -> dict:
+    """``replay`` of a whole sequence on the card after a warm-up on its
+    first 10 scans; every count zeroed just before the run and read just
+    after; wall time ends in ``torch.cuda.synchronize()``."""
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.loop import icp
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline.slam import replay
+
+    scans, gt, times = seq
+    n = len(scans)
+    x, v, t = pack_sequence(scans, times, cfg, device=dev)
+    replay(x[:10], v[:10], t[:10], cfg, device=dev)         # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_sync_count()
+    D.start_stage_timing()
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    icp.iteration_count = 0
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        state, outs = replay(x, v, t, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    icp_iters = icp.iteration_count
+    syncs = D.sync_count()
+    stages = D.stage_times_ms()
+    peak = torch.cuda.max_memory_allocated()
+    del x, v, t
+
+    for name in ("odom", "fused", "mapped"):
+        assert bool(torch.isfinite(outs[name]).all()), f"{name} not finite"
+    err, ate_m = pose_errors(outs["fused"].cpu().numpy(), gt)
+    meta = state.mapping.meta
+    kf, factors = int(meta.kf_count), int(meta.factor_count)
+    cycles = n // cfg.mapping.mapping_frequency_divider
+    diag = outs["loop_diag"].cpu().numpy()
+    return {
+        "scans": n, "wall_s": wall, "scans_per_s": n / wall,
+        "ms_per_scan": 1e3 * wall / n,
+        "ms_per_scan_by_stage": {k: ms / n for k, ms in stages.items()},
+        "ms_per_mapping_cycle": stages.get("mapping", 0.0) / cycles,
+        "host_syncs_per_scan": syncs / n,
+        "max_memory_allocated_bytes": peak,
+        "keyframes": kf, "factors": factors,
+        "loop_factors": factors - (kf - 1), "ate": ate_m,
+        "err_at_scan_m": {k: float(err[k])
+                          for k in sorted({10, len(err) // 2, len(err) - 1})},
+        "closure_attempts": int((diag[:, 0] > 0).sum()),
+        "attempts_with_candidate": int(((diag[:, 0] > 0)
+                                        & (diag[:, 2] < 1e6)).sum()),
+        "accepted": int((diag[:, 1] > 0).sum()), "icp_iterations": icp_iters,
+        "kf_dropped": int(meta.kf_dropped),
+        "factor_dropped": int(meta.factor_dropped),
+        "map_sat": int(meta.map_sat), "launches": launches,
+        "launches_by_shape": {k: dict(c) for k, c in shapes.items()}}
+
+
+def hdl64_phase(drive, dev):
+    """``hdl64()`` as shipped — KITTI geometry, 64 x 2083 image,
+    ``max_points`` 140032, loop closure on, banded search off — on the
+    330-scan drive (the JAX package's ``KITTI64_r05.json`` reached ATE rmse
+    0.338 m, 66 keyframes, 1 loop factor on it)."""
+    from lego_loam_tpu_torch.core.config import hdl64
+    cfg = hdl64()
+    assert cfg.mapping.enable_loop_closure
+    assert cfg.feature.odom_band_rings == 0
+    r = timed_replay(drive, cfg, dev)
+    emit({"phase": "hdl64",
+          "config": "hdl64() unchanged (loop closure on, banded search off)",
+          "sequence": dict(scans=len(drive[0]), **DRIVE),
+          "image": list(cfg.laser.image_size),
+          "max_points": cfg.pipeline.max_points, **r})
+    assert r["loop_factors"] >= 1, "no loop closed on the drive"
+    assert r["ate"]["rmse"] < 0.6, r["ate"]
+    assert r["kf_dropped"] == r["factor_dropped"] == r["map_sat"] == 0
+    assert r["launches"]["label_ccl"] == r["scans"], r["launches"]
+    assert r["launches"]["knn5"] > 0, r["launches"]
+    return r["launches"]
+
+
+def banded_phase(drive, dev):
+    """The first ``BANDED_SCANS`` scans of the drive through ``replay`` with
+    the banded odometry search (``odom_band_rings=4``) and, in the same call,
+    without it, both with the pick caps the banded layout needs."""
+    from lego_loam_tpu_torch.core.config import hdl64
+    base = hdl64()
+    prefix = tuple(a[:BANDED_SCANS] for a in drive)
+    runs = {}
+    for rings in (4, 0):
+        feature = dataclasses.replace(base.feature, odom_band_rings=rings,
+                                      **BANDED_CAPS)
+        runs[rings] = timed_replay(prefix, base.replace(feature=feature), dev)
+
+    emit({"phase": "banded", "sequence": dict(scans=BANDED_SCANS, **DRIVE),
+          "caps": BANDED_CAPS,
+          **{f"odom_band_rings_{rings}": dict(
+              r, ms_per_scan_odometry=r["ms_per_scan_by_stage"].get(
+                  "odometry")) for rings, r in runs.items()},
+          "ate_rmse_banded_minus_full_m":
+              runs[4]["ate"]["rmse"] - runs[0]["ate"]["rmse"]})
+    for rings, r in runs.items():
+        assert r["ate"]["rmse"] < 0.6, (rings, r["ate"])
+    assert runs[4]["launches"]["label_ccl"] == BANDED_SCANS, runs[4]
+    assert runs[4]["launches"]["knn5"] > 0, runs[4]["launches"]
+    return runs[4]["launches"]
+
+
 def profile_phase(state, packed, n, cfg, dev):
     """Trace ``n`` scans of a continued replay; device busy share = summed
     kernel time / wall time of the window."""
@@ -1088,7 +1298,7 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lego_loam_tpu_torch import kernels
-    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.core.config import hdl64, vlp16
     from lego_loam_tpu_torch.io.synthetic import make_sequence
 
     t_start = time.time()
@@ -1101,15 +1311,21 @@ def main() -> int:
     # the sequences are made on the host while the kernels build and the
     # 5-NN kernel is checked and timed on the device; every phase that
     # times the host (eager launches, replays) waits until they are made
+    workers = max(3, min(7, (os.cpu_count() or 4) - 1))
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
     with pool:
         jobs = {
+            "lap": pool.submit(make_sequence, LAP_SCANS, vlp16(), **LAP),
             "bench": pool.submit(make_sequence, args.scans, cfg,
                                  seed=args.seed, noise=0.01, speed=1.2),
-            "lap": pool.submit(make_sequence, LAP_SCANS, vlp16(), **LAP),
             "small_lap": pool.submit(make_sequence, SMALL_LAP_SCANS,
-                                     small_loop_config(), **SMALL_LAP)}
+                                     small_loop_config(), **SMALL_LAP),
+            "drive_check": pool.submit(make_sequence, DRIVE_CHECKED,
+                                       hdl64(), **DRIVE)}
+        drive_jobs = [pool.submit(drive_chunk, k,
+                                  min(k + DRIVE_CHUNK, DRIVE_SCANS))
+                      for k in range(0, DRIVE_SCANS, DRIVE_CHUNK)]
 
         kernels.build(force=True, verbose=True)
         kernels.lib()
@@ -1123,12 +1339,19 @@ def main() -> int:
         semantics_phase(dev)
         knn_entry = knn_phase(dev)
         data = {k: j.result() for k, j in jobs.items()}
+        data["drive"] = drive_sequence([j.result() for j in drive_jobs],
+                                       data.pop("drive_check"))
     emit({"phase": "data", "seconds": time.time() - t_start,
+          "workers": workers,
           "sequences": {"bench": dict(scans=args.scans, seed=args.seed,
                                       noise=0.01, speed=1.2),
                         "lap": dict(scans=LAP_SCANS, **LAP),
                         "small_lap": dict(scans=SMALL_LAP_SCANS,
-                                          **SMALL_LAP)}})
+                                          **SMALL_LAP),
+                        "drive": dict(scans=DRIVE_SCANS, **DRIVE,
+                                      chunk=DRIVE_CHUNK,
+                                      checked_against_make_sequence=
+                                      DRIVE_CHECKED)}})
 
     floor = launch_floor_phase()
     knn_entry["launch_floor_ms"] = floor
@@ -1145,9 +1368,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_parity_phase(data.pop("small_lap"), dev)
     cli_phase(bench, dev)
+    drive = data.pop("drive")
+    hdl64_launches = hdl64_phase(drive, dev)
+    torch.cuda.empty_cache()
+    banded_launches = banded_phase(drive, dev)
     for e in entries:
         by_path = {"slice": launches[e["name"]],
-                   "loop": loop_launches[e["name"]]}
+                   "loop": loop_launches[e["name"]],
+                   "hdl64": hdl64_launches[e["name"]],
+                   "banded": banded_launches[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         for path, count in by_path.items():

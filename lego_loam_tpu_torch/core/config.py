@@ -325,8 +325,10 @@ def hdl64() -> LegoLoamConfig:
             max_flat=2048,           # 4·6·64 = 1536
             max_less_flat=16384,     # 256 per ring post-downsample
             # The banded (per-ring-window) search is OFF in the JAX
-            # package's HDL-64 config; the port has not ported it yet
-            # (``odom_band_rings > 0`` raises NotImplementedError).
+            # package's HDL-64 config, and so here.  To turn it on, set
+            # odom_band_rings=4 AND the pick caps to exactly V·picks·
+            # sectors (768 / 7680 / 1536): the ring-blocked layout needs
+            # them (``frontend/features.py::_blocked_from_picks``).
             odom_band_rings=0,
         ),
         pipeline=PipelineConfig(max_points=140032, max_segmented=65536),

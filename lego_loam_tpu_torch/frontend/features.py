@@ -9,8 +9,9 @@ suppression that stops at column gaps > 10) is reproduced as a short loop
 of masked argmax picks over all (ring, sector) pairs at once — 20 + 4
 sequential steps in total instead of 96 sequential sorts.
 
-The ring-blocked feature layout of the banded odometry search
-(``_blocked_from_picks``) is not ported yet; ``odom_band_rings > 0`` raises.
+With ``odom_band_rings > 0`` the pick clouds ship ring-blocked
+(``_blocked_from_picks``) for the banded odometry search
+(``match/banded.py``).
 """
 
 from __future__ import annotations
@@ -172,14 +173,42 @@ def _cloud_from_picks(seg: SegmentedCloud, idxs: Tensor, have: Tensor,
         rel_time=torch.where(ok, rel, 0.0), valid=ok)
 
 
+def _blocked_from_picks(seg: SegmentedCloud, idxs: Tensor, have: Tensor,
+                        capacity: int) -> FeatureCloud:
+    """Ring-BLOCKED variant of :func:`_cloud_from_picks` for the banded
+    odometry search (``match/banded.py``): ring v's picks land in rows
+    ``[v·cap, (v+1)·cap)`` with cap = capacity // V (= n_picks·sectors,
+    the per-ring pick maximum, so nothing truncates).  Within a ring,
+    picks are sorted by column position with invalids last — the same
+    within-ring order as the position-major compact layout, keeping kNN
+    tie-break order equivalent.  The sort must be STABLE, as
+    ``jnp.argsort`` is: the invalid entries share one key."""
+    R, V, K = idxs.shape
+    S = seg.rng.shape[1]
+    cap = capacity // V
+    assert cap == R * K, (capacity, V, R, K)
+
+    idx_vr = idxs.transpose(0, 1).reshape(V, R * K)          # (V, R*K)
+    ok_vr = have.transpose(0, 1).reshape(V, R * K)
+    key = torch.where(ok_vr, idx_vr, 2 ** 30)
+    order = torch.sort(key, dim=1, stable=True).indices
+    idx_s = torch.gather(idx_vr, 1, order)
+    ok = torch.gather(ok_vr, 1, order).reshape(-1)
+
+    rings = torch.arange(V, device=idxs.device)[:, None].expand(V, R * K)
+    flat = (rings * S + torch.clamp(idx_s, 0, S - 1)).reshape(-1)
+    xyz = seg.xyz.reshape(-1, 3)[flat]
+    rel = seg.rel_time.reshape(-1)[flat]
+    return FeatureCloud(
+        xyz=torch.where(ok[:, None], xyz, 0.0),
+        ring=rings.reshape(-1).to(torch.float32),
+        rel_time=torch.where(ok, rel, 0.0), valid=ok)
+
+
 def extract_features(seg: SegmentedCloud, cfg: LegoLoamConfig) -> FeatureSet:
     """Full feature extraction (``extractFeatures``,
     ``featureAssociation.cpp:265-383``)."""
     f = cfg.feature
-    if f.odom_band_rings > 0:
-        raise NotImplementedError(
-            "odom_band_rings > 0 (ring-blocked feature layout for the "
-            "banded odometry search) is not ported yet")
     V, S = seg.rng.shape
     K = f.num_sectors
     dev = seg.rng.device
@@ -232,6 +261,20 @@ def extract_features(seg: SegmentedCloud, cfg: LegoLoamConfig) -> FeatureSet:
         rel_time=ds_payload[..., 1].reshape(-1),
         valid=ds_valid.reshape(-1))
 
+    if f.odom_band_rings > 0:
+        # banded odometry (match/banded.py): the pick clouds ship
+        # ring-blocked so the solver re-views them for free; requires the
+        # capacities to be exactly V·picks·sectors (asserted in
+        # _blocked_from_picks)
+        return FeatureSet(
+            sharp=_blocked_from_picks(seg,
+                                      corner_idx[:f.sharp_per_sector],
+                                      corner_has[:f.sharp_per_sector],
+                                      f.max_sharp),
+            less_sharp=_blocked_from_picks(seg, corner_idx, corner_has,
+                                           f.max_less_sharp),
+            flat=_blocked_from_picks(seg, flat_idx, flat_has, f.max_flat),
+            less_flat=less_flat)
     return FeatureSet(
         sharp=_cloud_from_picks(seg, corner_idx[:f.sharp_per_sector],
                                 corner_has[:f.sharp_per_sector],

@@ -17,6 +17,7 @@ import torch
 
 from ..core.config import LegoLoamConfig
 from ..core.types import RangeImage, RawScan
+from ..match.voxelhash import recip32
 
 Tensor = torch.Tensor
 
@@ -62,10 +63,13 @@ def project_scan(raw: RawScan, cfg: LegoLoamConfig) -> RangeImage:
     rng = _norm3(xyz)
     vertical = torch.arcsin(torch.clamp(
         xyz[:, 2] / torch.clamp(rng, min=1e-12), -1.0, 1.0))
-    row = torch.floor((vertical + laser.ang_bottom) / laser.ang_res_y
+    # the pitches are constants: multiply by their float32 reciprocals, as
+    # the JAX package's compiled code does, so that a point on a row or
+    # column edge lands in the same pixel
+    row = torch.floor((vertical + laser.ang_bottom) * recip32(laser.ang_res_y)
                       ).to(torch.int32)
     horizon = torch.arctan2(xyz[:, 0], xyz[:, 1])
-    col = (-torch.round((horizon - 0.5 * math.pi) / laser.ang_res_x)
+    col = (-torch.round((horizon - 0.5 * math.pi) * recip32(laser.ang_res_x))
            ).to(torch.int32) + H // 2
     col = torch.where(col >= H, col - H, col)
 

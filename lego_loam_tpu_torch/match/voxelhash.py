@@ -37,8 +37,9 @@ def recip32(x: float) -> float:
 
 
 def _voxel_coords(xyz: Tensor, leaf: float) -> Tensor:
-    """Integer voxel coordinates as float32 in [0, 65535]."""
-    q = torch.floor(xyz / leaf) + float(_OFFSET)
+    """Integer voxel coordinates as float32 in [0, 65535], computed as the
+    JAX package's jitted filters compute them (``recip32``)."""
+    q = torch.floor(xyz * recip32(leaf)) + float(_OFFSET)
     return torch.clamp(q, 0.0, float(_BITS - 1))
 
 
@@ -165,7 +166,7 @@ def voxel_hash_downsample(xyz: Tensor, payload: Tensor, valid: Tensor,
     """
     n = xyz.shape[0]
     dev = xyz.device
-    q = torch.floor(xyz / leaf).to(torch.int32)
+    q = torch.floor(xyz * recip32(leaf)).to(torch.int32)
     h = (q[..., 0] * 73856093) ^ (q[..., 1] * 19349663) \
         ^ (q[..., 2] * 83492791)
     if salt is not None:

@@ -27,8 +27,15 @@ phase are written out (``_deskew_jac``).
 
 Loop form: a Python loop whose convergence test is read on the host — one
 ``host_bool`` (a stream synchronisation on a CUDA device) per iteration,
-plus one for the thin-cloud gate.  The banded search (``odom_band_rings >
-0``) is not ported yet and raises.
+plus one for the thin-cloud gate.
+
+Banded search (``odom_band_rings > 0``, ``match/banded.py``): every cloud
+arrives ring-blocked, so queries and candidates are reshapes.  The candidate
+bands are built ONCE per call, after the thin-cloud gate, and the search
+closures reuse them at every re-association.  (The JAX package rebuilds
+them inside each search because hoisting them tripped an XLA:TPU fault;
+nothing like it applies here.)  The JAX package replaces the gate by a
+``where`` on the result, which gives the same θ.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import host_bool
 from ..core.types import FeatureCloud
+from ..match import banded
 from ..match.bruteforce import (masked_nn, nn_in_ring_window,
                                 pairwise_sqdist)
 
@@ -129,6 +137,96 @@ def _search_surf(theta, flat: FeatureCloud, last: FeatureCloud,
     c = last.xyz[j3.to(torch.int64)]
     n = _unit(torch.linalg.cross(b - a, c - a, dim=-1))
     return _Corr(a=a, u=n, ok=ok)
+
+
+def _masked_centroid(xyz: Tensor, valid: Tensor) -> Tensor:
+    n = torch.clamp(torch.sum(valid.to(torch.float32)), min=1.0)
+    return torch.sum(torch.where(valid[:, None], xyz, 0.0), dim=0) / n
+
+
+def _make_search_surf_banded(cand: banded.BandedCandidates, V: int,
+                             qc: int):
+    """Banded variant of :func:`_search_surf` (same ±2.5-ring j2/j3
+    semantics, ``featureAssociation.cpp:640-733``) over per-ring blocks —
+    the (Q, M) matrix becomes (V, qc, (2B+1)·cc).  Absolute 5 m gates are
+    EXACT here (difference-first recompute on the winners)."""
+
+    def search(theta, flat: FeatureCloud, last, cfg) -> _Corr:
+        del last
+        f = cfg.feature
+        max_d2 = f.nearest_feature_search_dist ** 2
+        x = deskew_to_start(theta, flat.xyz, flat.rel_time)
+        center = _masked_centroid(x, flat.valid)
+        xq = x.reshape(V, qc, 3)
+        okq = flat.valid.reshape(V, qc)
+
+        d2 = banded.banded_sqdist(xq, center, cand)       # (V, qc, Wc)
+        okc = cand.valid[:, None, :]
+        j1, _ = banded.masked_argmin(d2, okc)
+        a = banded.gather_band(cand, j1)                  # (V, qc, 3)
+        dist1 = banded.exact_sqdist_to(xq, a)
+        ok1 = (dist1 < max_d2) & okq
+
+        rc = torch.floor(cand.ring)[:, None, :]           # (V, 1, Wc)
+        r1 = torch.floor(torch.gather(cand.ring, 1, j1))[..., None]
+        not_j1 = (torch.arange(d2.shape[-1], device=d2.device)[None, None, :]
+                  != j1[..., None])
+        win2 = (rc >= r1 - f.ring_window) & (rc <= r1)
+        win3 = (rc >= r1 + 1.0e-3) & (rc <= r1 + f.ring_window)
+        ok2 = okc & win2 & not_j1
+        ok3 = okc & win3 & not_j1
+        j2, _ = banded.masked_argmin(d2, ok2)
+        j3, _ = banded.masked_argmin(d2, ok3)
+        b = banded.gather_band(cand, j2)
+        c = banded.gather_band(cand, j3)
+        dist2 = banded.exact_sqdist_to(xq, b)
+        dist3 = banded.exact_sqdist_to(xq, c)
+        # a window with no valid candidate returns column 0: guard it
+        ok = (ok1 & torch.any(ok2, dim=-1) & torch.any(ok3, dim=-1)
+              & (dist2 < max_d2) & (dist3 < max_d2))
+
+        n = _unit(torch.linalg.cross(b - a, c - a, dim=-1))
+        return _Corr(a=a.reshape(-1, 3), u=n.reshape(-1, 3),
+                     ok=ok.reshape(-1))
+
+    return search
+
+
+def _make_search_corner_banded(cand: banded.BandedCandidates, V: int,
+                               qc: int):
+    """Banded variant of :func:`_search_corner`
+    (``featureAssociation.cpp:503-569``): 1-NN + nearest point in a
+    *different* ring within ±2.5, over per-ring blocks."""
+
+    def search(theta, sharp: FeatureCloud, last, cfg) -> _Corr:
+        del last
+        f = cfg.feature
+        max_d2 = f.nearest_feature_search_dist ** 2
+        x = deskew_to_start(theta, sharp.xyz, sharp.rel_time)
+        center = _masked_centroid(x, sharp.valid)
+        xq = x.reshape(V, qc, 3)
+        okq = sharp.valid.reshape(V, qc)
+
+        d2 = banded.banded_sqdist(xq, center, cand)
+        okc = cand.valid[:, None, :]
+        j1, _ = banded.masked_argmin(d2, okc)
+        a = banded.gather_band(cand, j1)
+        dist1 = banded.exact_sqdist_to(xq, a)
+        ok1 = (dist1 < max_d2) & okq
+
+        rc = torch.floor(cand.ring)[:, None, :]
+        r1 = torch.floor(torch.gather(cand.ring, 1, j1))[..., None]
+        win = ((rc >= r1 - f.ring_window) & (rc <= r1 + f.ring_window)
+               & (rc != r1))
+        ok2 = okc & win
+        j2, _ = banded.masked_argmin(d2, ok2)
+        b = banded.gather_band(cand, j2)
+        dist2 = banded.exact_sqdist_to(xq, b)
+        ok = ok1 & torch.any(ok2, dim=-1) & (dist2 < max_d2)
+        return _Corr(a=a.reshape(-1, 3), u=_unit(b - a).reshape(-1, 3),
+                     ok=ok.reshape(-1))
+
+    return search
 
 
 def _search_corner(theta, sharp: FeatureCloud, last: FeatureCloud,
@@ -278,19 +376,34 @@ def two_step_odometry(theta0: Tensor, sharp: FeatureCloud,
     are too thin (corner<10 ∨ surf<100, :1214).
     """
     f = cfg.feature
-    if f.odom_band_rings > 0:
-        raise NotImplementedError(
-            "odom_band_rings > 0 (banded per-ring-window odometry search) "
-            "is not ported yet")
     enough = ((last_corner.count >= f.min_corner_features)
               & (last_surf.count >= f.min_surf_features))
     if not host_bool(enough):
         return theta0
 
+    if f.odom_band_rings > 0:
+        # banded per-ring-window search (match/banded.py): every cloud is
+        # ring-blocked, so queries and candidates are reshapes; GN sums are
+        # order-invariant, so only the correspondence CANDIDATE set differs
+        # from the full search (far-ring 1-NNs outside ±B are dropped)
+        V = cfg.laser.num_vertical_scans
+        for c in (flat, sharp, last_corner, last_surf):
+            assert c.valid.shape[0] % V == 0, \
+                "banded odometry requires ring-blocked cloud capacities"
+        B = f.odom_band_rings
+        search_surf = _make_search_surf_banded(
+            banded.band(banded.ring_block_from_layout(last_surf, V), B),
+            V, flat.valid.shape[0] // V)
+        search_corner = _make_search_corner_banded(
+            banded.band(banded.ring_block_from_layout(last_corner, V), B),
+            V, sharp.valid.shape[0] // V)
+    else:
+        search_surf, search_corner = _search_surf, _search_corner
+
     th = _gn_phase(theta0, _SURF_FREE, flat, last_surf,
-                   _search_surf, _surf_dist, "surf",
+                   search_surf, _surf_dist, "surf",
                    f.odom_surf_iters, cfg)
     th = _gn_phase(th, _CORNER_FREE, sharp, last_corner,
-                   _search_corner, _corner_dist, "corner",
+                   search_corner, _corner_dist, "corner",
                    f.odom_corner_iters, cfg)
     return th

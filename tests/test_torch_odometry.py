@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from lego_loam_tpu.core import config as jcfg
 from lego_loam_tpu.core import se3 as jse3
+from lego_loam_tpu.core.types import FeatureCloud as JFeatureCloud
 from lego_loam_tpu.frontend.segmentation import image_projection as jproject
 from lego_loam_tpu.io.npz_io import pack_raw_scan as jpack
 from lego_loam_tpu.io.synthetic import make_sequence
@@ -175,10 +177,18 @@ def test_odometry_skips_thin_clouds_and_refuses_banded():
         _cloud(none, np.zeros(0), f.max_less_sharp),
         _cloud(none, np.zeros(0), f.max_less_flat), cfg)
     np.testing.assert_array_equal(tnp(theta), tnp(theta0))
+    # the banded search is no longer refused: with thin (ring-blocked)
+    # clouds it passes θ through, as the JAX package's ``where`` does
     banded = cfg.replace(feature=dataclasses.replace(f, odom_band_rings=4))
-    with pytest.raises(NotImplementedError):
-        tsolve.two_step_odometry(
-            theta0, _cloud(none, np.zeros(0), 64),
-            _cloud(none, np.zeros(0), 64),
-            _cloud(none, np.zeros(0), 64), _cloud(none, np.zeros(0), 64),
-            banded)
+    clouds = [_cloud(none, np.zeros(0), 64) for _ in range(4)]
+    theta = tsolve.two_step_odometry(theta0, *clouds, banded)
+    np.testing.assert_array_equal(tnp(theta), tnp(theta0))
+    jbanded = jcfg.vlp16()
+    jbanded = jbanded.replace(feature=dataclasses.replace(
+        jbanded.feature, odom_band_rings=4))
+    ref = jsolve.two_step_odometry(
+        jnp.asarray(tnp(theta0)),
+        *[JFeatureCloud(**{k: jnp.asarray(tnp(getattr(c, k)))
+                           for k in ("xyz", "ring", "rel_time", "valid")})
+          for c in clouds], jbanded)
+    np.testing.assert_array_equal(tnp(theta), np.asarray(ref))
