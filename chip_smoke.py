@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--scans N] [--profile N]
 
 Needs one CUDA card, ``nvcc`` and nothing else; exits non-zero without a
-card.  The three synthetic sequences it replays are made on the host in
-worker processes from the start, beside the kernel phases.  It
+card.  The synthetic sequences it replays are made on the host in worker
+processes from the start, beside the kernel phases.  It
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions,
 2. builds the hand-written kernels from ``lego_loam_tpu_torch/csrc``,
@@ -38,9 +38,24 @@ worker processes from the start, beside the kernel phases.  It
    ``banded``: the first 120 scans of that drive with the banded odometry
    search on (``odom_band_rings=4``, the pick caps its layout needs) and,
    in the same call, off,
-9. with ``--profile N``, traces N more scans with ``torch.profiler`` and
+9. ``batched``: ``pipeline.slam.batched_replay`` of 4 streams of 100
+   scans lock-step (``vlp16()`` as shipped; stream 0 is the slice's
+   sequence, seeds 43-45 the others, made in the worker pool), one batched
+   K1 launch a scan-step for all 4 images, beside ``replay`` of stream 0
+   alone: aggregate and single-stream scans/s, per-stream ATE,
+   ``sharded``: ``distributed.mesh.replay_sharded`` on a mesh of 2 shards on
+   the one card (two host threads) over the first 60 scans of those
+   streams against the batched run, K2 from two threads on two CUDA
+   streams against single calls, ``optimize_poses_sharded`` on the loop
+   run's final graph on meshes of 1 and 2 shards, and ``replay(mesh=…)`` on
+   the small lap with a re-solve at every closure against the run without
+   a mesh, ``multihost``: the ``torch.distributed`` worker
+   (``distributed/multihost.py``) in 2 processes over ``gloo`` on the card
+   and in 1 process over ``nccl``, each held to the single-device solve and
+   to each stream's own replay,
+10. with ``--profile N``, traces N more scans with ``torch.profiler`` and
    prints the device's busy share and the kernels that take most of it,
-10. prints one ``{"kernels": [...]}`` line (``launches``: every main path)
+11. prints one ``{"kernels": [...]}`` line (``launches``: every main path)
    and, last, the ``{"ok": ...}`` line.
 
 Every phase raises on failure; nothing is caught and skipped.  A kernel
@@ -71,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -121,6 +137,27 @@ def _events_ms(run, reps: int) -> float:
     return statistics.median(times)
 
 
+_capture_stream = None
+
+
+def capture(fn, *args):
+    """``fn(*args)`` captured in a CUDA graph on one side stream, after a
+    call on that stream (the 5-NN wrapper keeps its scratch per stream and
+    makes it outside a capture).  Returns (graph, captured outputs)."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    side = _capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(*args)
+    return graph, out
+
+
 def device_ms(fn, n: int = DEVICE_LAUNCHES, reps: int = 5) -> dict:
     """Device time of one launch of ``fn()`` on inputs already resident:
     ``n`` launches between one pair of events, divided by ``n`` — launched
@@ -134,9 +171,7 @@ def device_ms(fn, n: int = DEVICE_LAUNCHES, reps: int = 5) -> dict:
         fn()
     torch.cuda.synchronize()
     ms_loop = _events_ms(loop, reps) / n
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        loop()
+    graph, _ = capture(loop)
     graph.replay()
     torch.cuda.synchronize()
     ms_graph = _events_ms(graph.replay, reps) / n
@@ -218,11 +253,7 @@ def capture_check(name, fn, first, second) -> None:
     (after a warm-up call) and replayed on the contents of ``second``,
     copied into the same tensors, must equal the eager call on ``second``."""
     static = [t.clone() for t in first]
-    fn(*static)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = fn(*static)
+    graph, captured = capture(fn, *static)
     for dst, src in zip(static, second):
         dst.copy_(src)
     graph.replay()
@@ -338,8 +369,10 @@ def label_phase(scans, cfg, dev, floor):
         return label_inputs(rnd(0.8), rnd(0.45), rnd(0.45))
 
     cases = {}
-    for k in (0, len(scans) // 2, len(scans) - 1):
-        cases[f"scan{k}"] = scan_label_inputs(scans[k], cfg, dev)
+    scan_keys = [f"scan{k}" for k in (0, len(scans) // 4, len(scans) // 2,
+                                      len(scans) - 1)]
+    for key in scan_keys:
+        cases[key] = scan_label_inputs(scans[int(key[4:])], cfg, dev)
     cases.update(hand_made_label_cases(V, H, dev))
     big = hdl64()
     big_scans, _, _ = make_sequence(1, big, seed=7, noise=0.01)
@@ -402,6 +435,7 @@ def label_phase(scans, cfg, dev, floor):
         *cases["tiled_random"]))
     tiled_plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(
         *cases["tiled_random"], 64), reps=5, warmup=1)
+    batched = label_batched_checks(cases, scan_keys, gen, dev)
 
     def bound_ms(n_pixels):
         n_bytes = n_pixels * (4 + 1 + 1 + 4)   # labels0, 2 masks in; 1 out
@@ -425,12 +459,83 @@ def label_phase(scans, cfg, dev, floor):
         "hdl64": {"shape": [Vb, Hb], **big_t, "plain_ms": big_plain_ms,
                   "bound_ms": bound_ms(Vb * Hb)},
         "tiled": {"shape": [Vt, Ht], **tiled_t, "plain_ms": tiled_plain_ms,
-                  "bound_ms": bound_ms(Vt * Ht)}}
+                  "bound_ms": bound_ms(Vt * Ht)},
+        "batched": batched}
+    batched["bound_ms"] = bound_ms(math.prod(batched["shape"]))
+    batched["bound_by"] = "bytes"
     emit({"phase": "kernel", "kernel": "label_ccl", "cases": report,
           "graph_capture": True, **t, "plain_ms": plain_ms,
           "library_ms": None, "bound_ms": bound,
-          "hdl64_scan": entry["hdl64"], "tiled_random": entry["tiled"]})
+          "hdl64_scan": entry["hdl64"], "tiled_random": entry["tiled"],
+          "batched": batched})
     return entry
+
+
+def label_batched_checks(cases, scan_keys, gen, dev):
+    """K1 on B images at once, (B, V, H): ONE launch, bit-equal to B single
+    launches and to the plain version on the batch, with bool and int32
+    edges, for groups that reach each kernel (clusters of 1 and 8 blocks,
+    the tiled kernel) and for images of an odd pixel count, whose batch
+    neighbours start off the 16-byte grid; replayed from a CUDA graph; then
+    timed at the batched path's shape, (4, 16, 1800) from four scans,
+    beside four single launches."""
+    from lego_loam_tpu_torch.frontend import cuda_label
+
+    def odd(rows, cols):
+        rnd = lambda p: (torch.rand((rows, cols), generator=gen) < p).to(dev)
+        return label_inputs(rnd(0.8), rnd(0.45), rnd(0.45))
+
+    groups = {
+        "vlp16_scans": [cases[k] for k in scan_keys],
+        "vlp16_hand_made": [cases[k] for k in ("wrap", "serpentine",
+                                               "empty", "all_one")],
+        "hdl64": [cases["hdl64_scan"], cases["hdl64_random"]],
+        "rows1": [cases["rows1_random"]] * 3,
+        "odd_5x37": [odd(5, 37) for _ in range(3)],
+        "odd_1x181": [odd(1, 181) for _ in range(3)],
+        "tiled": [cases["tiled_random"], cases["tiled_serpentine"],
+                  cases["tiled_wrap"]],
+    }
+    report = []
+    for name, images in groups.items():
+        stacked = [torch.stack([im[k] for im in images]).contiguous()
+                   for k in range(3)]
+        ref = cuda_label.propagate_labels_torch(*stacked, max_sweeps=100000)
+        for edges in ("bool", "int32"):
+            lab0, r, d = (stacked if edges == "bool" else
+                          (stacked[0], stacked[1].to(torch.int32),
+                           stacked[2].to(torch.int32)))
+            before = cuda_label.launch_count
+            got = cuda_label.propagate_labels_cuda(lab0, r, d)
+            if cuda_label.launch_count != before + 1:
+                raise AssertionError(f"batched label {name}: not one launch")
+            singles = torch.stack([cuda_label.propagate_labels_cuda(
+                lab0[k], r[k], d[k]) for k in range(len(images))])
+            torch.cuda.synchronize()
+            if not (torch.equal(got, singles) and torch.equal(got, ref)):
+                raise AssertionError(
+                    f"batched label kernel {name} ({edges} edges): "
+                    f"{int(torch.sum(got != singles))} pixels differ from "
+                    f"single launches, {int(torch.sum(got != ref))} from "
+                    f"the plain version")
+        report.append({"group": name, "shape": list(stacked[0].shape),
+                       "one_launch": True, "bit_equal": True})
+    vlp = [torch.stack([cases[k][i] for k in scan_keys]).contiguous()
+           for i in range(3)]
+    other = [torch.stack([cases[k][i] for k in
+                          ("wrap", "serpentine", "empty", "all_one")])
+             .contiguous() for i in range(3)]
+    capture_check("label_ccl (batched)", cuda_label.propagate_labels_cuda,
+                  vlp, other)
+    t = timed(lambda: cuda_label.propagate_labels_cuda(*vlp))
+    four = timed(lambda: [cuda_label.propagate_labels_cuda(
+        vlp[0][k], vlp[1][k], vlp[2][k]) for k in range(len(scan_keys))])
+    plain_ms = time_ms(lambda: cuda_label.propagate_labels_torch(*vlp, 64))
+    emit({"phase": "kernel_batched", "kernel": "label_ccl", "groups": report,
+          "graph_capture": True})
+    return {"shape": list(vlp[0].shape), **t, "plain_ms": plain_ms,
+            "library_ms": None, "max_abs_err": 0, "groups": report,
+            "four_single_launches": four}
 
 
 # --------------------------------------------------------------------------
@@ -1135,10 +1240,11 @@ def drive_sequence(chunks, check):
     return scans, gt, times
 
 
-def timed_replay(seq, cfg, dev) -> dict:
+def timed_replay(seq, cfg, dev, with_fused: bool = False) -> dict:
     """``replay`` of a whole sequence on the card after a warm-up on its
     first 10 scans; every count zeroed just before the run and read just
-    after; wall time ends in ``torch.cuda.synchronize()``."""
+    after; wall time ends in ``torch.cuda.synchronize()``.  ``with_fused``:
+    the fused poses too, under ``fused``."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.frontend import cuda_label
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
@@ -1178,7 +1284,9 @@ def timed_replay(seq, cfg, dev) -> dict:
     kf, factors = int(meta.kf_count), int(meta.factor_count)
     cycles = n // cfg.mapping.mapping_frequency_divider
     diag = outs["loop_diag"].cpu().numpy()
+    extra = {"fused": outs["fused"].cpu().numpy()} if with_fused else {}
     return {
+        **extra,
         "scans": n, "wall_s": wall, "scans_per_s": n / wall,
         "ms_per_scan": 1e3 * wall / n,
         "ms_per_scan_by_stage": {k: ms / n for k, ms in stages.items()},
@@ -1247,6 +1355,357 @@ def banded_phase(drive, dev):
     assert runs[4]["launches"]["label_ccl"] == BANDED_SCANS, runs[4]
     assert runs[4]["launches"]["knn5"] > 0, runs[4]["launches"]
     return runs[4]["launches"]
+
+
+# --------------------------------------------------------------------------
+# phase 9: multi-stream and multi-device
+# --------------------------------------------------------------------------
+
+BATCH_SEEDS = (42, 43, 44, 45)     # stream 0 is the slice's sequence
+BATCH_SCANS = 100
+SHARDED_SCANS = 60
+
+
+def batched_phase(streams, dev):
+    """``pipeline.slam.batched_replay`` of 4 streams lock-step, ``vlp16()``
+    as shipped (loop closure on), beside ``replay`` of stream 0 alone in
+    the same call.  Every count zeroed just before each run and read just
+    after; K1 must launch once per scan-step for all 4 streams."""
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline.slam import batched_replay
+    cfg = vlp16()
+    B, n = len(streams), len(streams[0][0])
+    packed = [pack_sequence(sc, tm, cfg, device=dev) for sc, _, tm in streams]
+    x, v, t = (torch.stack([p[k] for p in packed]) for k in range(3))
+    batched_replay(x[:, :10], v[:, :10], t[:, :10], cfg, device=dev)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_sync_count()
+    D.start_stage_timing()
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        states, outs = batched_replay(x, v, t, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    syncs = D.sync_count()
+    stages = D.stage_times_ms()
+    peak = torch.cuda.max_memory_allocated()
+    del x, v, t, packed
+
+    per_stream = []
+    for b, ((_, gt, _), st) in enumerate(zip(streams, states)):
+        for name in ("odom", "fused", "mapped"):
+            assert bool(torch.isfinite(outs[name][b]).all()), (b, name)
+        _, ate_m = pose_errors(outs["fused"][b].cpu().numpy(), gt)
+        meta = st.mapping.meta
+        per_stream.append({
+            "seed": BATCH_SEEDS[b], "ate": ate_m,
+            "keyframes": int(meta.kf_count),
+            "factors": int(meta.factor_count),
+            "kf_dropped": int(meta.kf_dropped),
+            "factor_dropped": int(meta.factor_dropped),
+            "map_sat": int(meta.map_sat)})
+    single = timed_replay(streams[0], cfg, dev, with_fused=True)
+    fused0 = outs["fused"][0].cpu().numpy()
+    result = {
+        "phase": "batched", "config": "vlp16() unchanged (loop closure on)",
+        "streams": B, "scans_per_stream": n,
+        "sequences": [dict(seed=s, noise=0.01, speed=1.2)
+                      for s in BATCH_SEEDS[:B]],
+        "wall_s": wall, "aggregate_scans_per_s": B * n / wall,
+        "single_stream_scans_per_s": single["scans_per_s"],
+        "aggregate_over_single": (B * n / wall) / single["scans_per_s"],
+        "ms_per_scan_step": 1e3 * wall / n,
+        "ms_per_scan_step_by_stage": {k: ms / n for k, ms in stages.items()},
+        "host_syncs_per_scan_step": syncs / n,
+        "max_memory_allocated_bytes": peak, "per_stream": per_stream,
+        "launches": launches,
+        "launches_by_shape": {k: dict(c) for k, c in shapes.items()},
+        "single_stream_0": {k: single[k] for k in (
+            "scans_per_s", "ms_per_scan", "ms_per_scan_by_stage",
+            "host_syncs_per_scan", "keyframes", "factors", "ate",
+            "launches")}}
+    dev_m = float(np.max(np.linalg.norm(
+        fused0[:, 3:] - single["fused"][:, 3:], axis=1)))
+    result["stream0_max_fused_position_diff_m"] = dev_m
+    emit(result)
+    image = "x".join(map(str, (B, *cfg.laser.image_size)))
+    assert launches["label_ccl"] == n, launches          # one launch a step
+    assert shapes["label_ccl"] == {image: n}, shapes["label_ccl"]
+    assert launches["knn5"] > 0, launches
+    for r in per_stream:
+        assert r["ate"]["rmse"] < 0.5, r
+        assert r["kf_dropped"] == r["factor_dropped"] == r["map_sat"] == 0
+    assert (per_stream[0]["keyframes"], per_stream[0]["factors"]) == (
+        single["keyframes"], single["factors"]), (per_stream[0], single)
+    assert dev_m < 0.1, dev_m
+    return launches, outs
+
+
+def knn_two_streams_check(dev, calls: int = 50):
+    """K2 from two host threads, each on a CUDA stream of its own, at the
+    scan-to-map shapes (1024 x 16384 + 2048 x 32768 in one launch), on
+    different inputs: every one of the 2 x ``calls`` results equals the
+    single call's on the same inputs (a plan shared between the threads, or
+    scratch shared between the streams, would mix them)."""
+    from lego_loam_tpu_torch.match import cuda_knn
+    inputs = [[knn_case(1024, 16384, 300 + k, dev),
+               knn_case(2048, 32768, 310 + k, dev)] for k in range(2)]
+    refs = [cuda_knn.knn5_grouped(p) for p in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    results = [[], []]
+    errors = []
+
+    def work(k):
+        try:
+            streams[k].wait_stream(torch.cuda.default_stream())
+            with torch.cuda.stream(streams[k]):
+                for _ in range(calls):
+                    results[k].append(cuda_knn.knn5_grouped(inputs[k]))
+        except BaseException as e:      # noqa: BLE001 — raised below
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("two-stream 5-NN check: a thread hung")
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert len(results[k]) == calls
+        for got in results[k]:
+            for a, b in zip(flat(got), flat(refs[k])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"two-stream 5-NN: thread {k} "
+                                         f"result differs from one call")
+    shapes = ((1024, 16384), (2048, 32768))
+    plan_streams = {key[1] for key in cuda_knn._plans if key[2] == shapes}
+    assert len(plan_streams) >= 3, plan_streams   # default + the two
+    return {"threads": 2, "calls_each": calls, "all_equal": True,
+            "plans_for_shape": len(plan_streams)}
+
+
+def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev):
+    """``distributed.mesh.replay_sharded`` over a mesh of 2 shards on the
+    one card (two host threads, K2 and K1 from both) on the first
+    ``SHARDED_SCANS`` scans of the batched streams, against
+    ``batched_replay``'s; the two-stream K2 check; the factor-sharded solve
+    on the loop run's final graph on meshes of 1 and 2 shards against
+    ``optimize_poses``; ``replay(mesh=…)`` on the small lap with a re-solve
+    at every accepted closure, against the run without a mesh."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.distributed import sharded_pgo
+    from lego_loam_tpu_torch.distributed.mesh import make_mesh, replay_sharded
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.graph.posegraph import optimize_poses
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline import mapping
+    from lego_loam_tpu_torch.pipeline.slam import replay
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)     # (a CPU rehearsal: the CPU)
+    cfg = vlp16()
+    n = SHARDED_SCANS
+    packed = [pack_sequence(sc[:n], tm[:n], cfg, device=dev)
+              for sc, _, tm in streams]
+    x, v, t = (torch.stack([p[k] for p in packed]) for k in range(3))
+    mesh = make_mesh(2, axis="data", devices=[card, card])
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    t0 = time.perf_counter()
+    states, outs = replay_sharded(x, v, t, cfg, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    del x, v, t, packed
+    B = len(streams)
+    diff = float(torch.max(torch.linalg.norm(
+        outs["fused"][:, :, 3:] - batched_outs["fused"][:, :n, 3:], dim=-1)))
+    counts_equal = all(
+        torch.equal(outs[k][:, n - 1], batched_outs[k][:, n - 1])
+        for k in ("kf_count", "factor_count"))
+    sharded = {"shards": 2, "streams": B, "scans": n, "wall_s": wall,
+               "aggregate_scans_per_s": B * n / wall, "launches": launches,
+               "counts_equal_batched": counts_equal,
+               "max_fused_position_diff_m": diff}
+    two_streams = knn_two_streams_check(dev)
+
+    meta = loop_meta
+    solves = {}
+    ref, _ = optimize_poses(meta.kf_pose, meta.kf_count, meta.graph,
+                            gn_iters=3, pcg_iters=64, return_iters=True)
+    # 0 shards: ``optimize_poses`` itself, timed the same way in turn
+    for shards in (0, 1, 2, 0, 1, 2):
+        pmesh = make_mesh(max(shards, 1), axis="pgo",
+                          devices=[card] * max(shards, 1))
+
+        def solve():
+            if shards == 0:
+                return optimize_poses(meta.kf_pose, meta.kf_count,
+                                      meta.graph, gn_iters=3, pcg_iters=64,
+                                      return_iters=True)
+            return sharded_pgo.optimize_poses_sharded(
+                meta.kf_pose, meta.kf_count, meta.graph, pmesh, axis="pgo",
+                gn_iters=3, pcg_iters=64, return_iters=True)
+        solve()                                           # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            poses, iters = solve()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        entry = solves.setdefault(f"shards_{shards}", {
+            "ms_all": [], "pcg_iterations": iters,
+            "max_pose_diff": float(torch.max(torch.abs(poses - ref)))})
+        entry["ms_all"] += times
+        entry["ms"] = statistics.median(entry["ms_all"])
+
+    scans, _, times_ = small_lap
+    lap_cfg = small_loop_config()
+    lap_cfg = lap_cfg.replace(mapping=dataclasses.replace(
+        lap_cfg.mapping, loop_relin_trans=-1.0))
+    lx, lv, lt = pack_sequence(scans, times_, lap_cfg, device=dev)
+    r0 = mapping.resolve_count
+    plain_state, plain = replay(lx, lv, lt, lap_cfg, device=dev)
+    resolves = mapping.resolve_count - r0
+    s0 = sharded_pgo.solve_count
+    lap_mesh = make_mesh(2, axis="pgo", devices=[card, card])
+    mesh_state, meshed = replay(lx, lv, lt, lap_cfg, device=dev,
+                                mesh=lap_mesh)
+    sharded_solves = sharded_pgo.solve_count - s0
+    lap = {
+        "scans": len(scans), "resolves_without_mesh": resolves,
+        "sharded_solves_with_mesh": sharded_solves,
+        "keyframes": [int(plain_state.mapping.meta.kf_count),
+                      int(mesh_state.mapping.meta.kf_count)],
+        "factors": [int(plain_state.mapping.meta.factor_count),
+                    int(mesh_state.mapping.meta.factor_count)],
+        "max_fused_position_diff_m": float(torch.max(torch.linalg.norm(
+            plain["fused"][:, 3:] - meshed["fused"][:, 3:], dim=-1)))}
+    emit({"phase": "sharded", "replay_sharded": sharded,
+          "knn5_two_threads_two_streams": two_streams,
+          "optimize_poses_sharded": solves, "replay_with_mesh": lap})
+    assert counts_equal, "replay_sharded counts != batched_replay's"
+    assert diff < 0.1, diff
+    assert launches["label_ccl"] == 2 * n, launches       # one a shard a step
+    assert launches["knn5"] > 0, launches
+    for shards in (1, 2):
+        r = solves[f"shards_{shards}"]
+        assert r["max_pose_diff"] < 5e-3, r
+        assert max(r["pcg_iterations"]) < 64, r
+    assert resolves >= 1 and sharded_solves == resolves, lap
+    assert lap["keyframes"][0] == lap["keyframes"][1], lap
+    assert lap["factors"][0] == lap["factors"][1], lap
+    assert lap["max_fused_position_diff_m"] < 0.1, lap
+    return launches
+
+
+MULTIHOST_SCANS = 5
+MULTIHOST_WAIT_S = 300
+
+
+def multihost_run(procs: int, backend: str, dev, out: str) -> dict:
+    """``python -m lego_loam_tpu_torch.distributed.multihost`` in ``procs``
+    processes on this card (2 local shards each): their results, or an
+    error with their stderr.  Every process is killed on a timeout."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, GLOO_SOCKET_IFNAME="lo",
+               NCCL_SOCKET_IFNAME="lo")
+    cmd = [sys.executable, "-m", "lego_loam_tpu_torch.distributed.multihost",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+           str(procs), "--out", out, "--backend", backend, "--device",
+           f"cuda:{dev.index or 0}", "--local-devices", "2", "--n-scans",
+           str(MULTIHOST_SCANS)]
+    workers = [subprocess.Popen(cmd + ["--process-id", str(k)], cwd=root,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+               for k in range(procs)]
+    logs = []
+    try:
+        for w in workers:
+            logs.append(w.communicate(timeout=MULTIHOST_WAIT_S))
+    except subprocess.TimeoutExpired:
+        for w in workers:
+            w.kill()
+        logs = [w.communicate() for w in workers]
+        raise AssertionError(f"multihost {backend} x {procs} timed out:\n"
+                             + "\n".join(e.decode()[-3000:] for _, e in logs))
+    for k, (w, (_, err)) in enumerate(zip(workers, logs)):
+        if w.returncode != 0:
+            raise AssertionError(f"multihost {backend} worker {k} rc "
+                                 f"{w.returncode}:\n{err.decode()[-4000:]}")
+    return dict(np.load(out))
+
+
+def multihost_phase(dev):
+    """The ``torch.distributed`` runtime on the one card: 2 processes over
+    ``gloo`` (two ranks may share a card only there), each with 2 shards on
+    ``cuda:0`` — the psum, the factor-sharded solve across processes, the
+    gathered data-parallel replay — and 1 process over ``nccl`` (psum and
+    solve; NCCL takes one rank per card).  Held to the single-device solve
+    (1e-4, as on the CPU) and to each stream's own ``replay`` on the card
+    (0.01 m / rad: the card's float atomics sum in no fixed order)."""
+    from lego_loam_tpu_torch.distributed import multihost
+    from lego_loam_tpu_torch.graph.posegraph import optimize_poses
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline.slam import replay
+    poses, n_nodes, g = multihost._pgo_graph(dev)
+    ref = optimize_poses(poses, n_nodes, g, gn_iters=6, pcg_iters=64)
+    ref = ref.cpu().numpy()
+    cfg = multihost.replay_config()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for procs, backend in ((2, "gloo"), (1, "nccl")):
+            t0 = time.perf_counter()
+            z = multihost_run(procs, backend, dev,
+                              os.path.join(tmp, f"{backend}.npz"))
+            n = 2 * procs
+            solve_ok = bool(np.all(np.abs(z["solved"] - ref)
+                                   <= 1e-4 + 1e-4 * np.abs(ref)))
+            solve_diff = float(np.max(np.abs(z["solved"] - ref)))
+            fused = z["fused"]
+            replay_diff = 0.0
+            for stream in range(n):
+                scans, _, times_ = multihost.stream_sequence(
+                    stream, MULTIHOST_SCANS)
+                x, v, t = pack_sequence(scans, times_, cfg, device=dev)
+                own = replay(x, v, t, cfg, device=dev)[1]["fused"]
+                replay_diff = max(replay_diff, float(np.max(np.abs(
+                    fused[stream] - own.cpu().numpy()))))
+            report[backend] = {
+                "processes": procs, "shards": int(z["n_devices"]),
+                "seconds": time.perf_counter() - t0,
+                "psum": float(z["psum"]), "psum_expected": n * (n - 1) / 2,
+                "pcg_iterations": z["pcg_iterations"].tolist(),
+                "max_solve_diff": solve_diff, "solve_within_1e-4": solve_ok,
+                "gathered_fused_shape": list(fused.shape),
+                "max_replay_diff": replay_diff}
+    emit({"phase": "multihost", **report})
+    for backend, r in report.items():
+        assert r["shards"] == 2 * r["processes"], r
+        assert r["psum"] == r["psum_expected"], r
+        assert r["solve_within_1e-4"], r
+        assert r["gathered_fused_shape"] == [r["shards"], MULTIHOST_SCANS, 6]
+        assert r["max_replay_diff"] < 0.01, r
 
 
 def profile_phase(state, packed, n, cfg, dev):
@@ -1323,6 +1782,12 @@ def main() -> int:
                                      small_loop_config(), **SMALL_LAP),
             "drive_check": pool.submit(make_sequence, DRIVE_CHECKED,
                                        hdl64(), **DRIVE)}
+        # the batched streams: stream 0 is the slice's sequence (whose
+        # scans are a prefix-consistent synthetic sequence), the others new
+        n_batch = min(BATCH_SCANS, args.scans)
+        batch_jobs = [pool.submit(make_sequence, n_batch, vlp16(), seed=seed,
+                                  noise=0.01, speed=1.2)
+                      for seed in BATCH_SEEDS[1:]]
         drive_jobs = [pool.submit(drive_chunk, k,
                                   min(k + DRIVE_CHUNK, DRIVE_SCANS))
                       for k in range(0, DRIVE_SCANS, DRIVE_CHUNK)]
@@ -1341,6 +1806,7 @@ def main() -> int:
         data = {k: j.result() for k, j in jobs.items()}
         data["drive"] = drive_sequence([j.result() for j in drive_jobs],
                                        data.pop("drive_check"))
+        data["batch"] = [j.result() for j in batch_jobs]
     emit({"phase": "data", "seconds": time.time() - t_start,
           "workers": workers,
           "sequences": {"bench": dict(scans=args.scans, seed=args.seed,
@@ -1351,7 +1817,9 @@ def main() -> int:
                         "drive": dict(scans=DRIVE_SCANS, **DRIVE,
                                       chunk=DRIVE_CHUNK,
                                       checked_against_make_sequence=
-                                      DRIVE_CHECKED)}})
+                                      DRIVE_CHECKED),
+                        "batch": [dict(scans=n_batch, seed=seed, noise=0.01,
+                                       speed=1.2) for seed in BATCH_SEEDS]}})
 
     floor = launch_floor_phase()
     knn_entry["launch_floor_ms"] = floor
@@ -1364,19 +1832,32 @@ def main() -> int:
     del state, packed
     loop_launches, state = loop_phase(data.pop("lap"), dev)
     resolve_phase(state, dev)
+    loop_meta = state.mapping.meta
     del state
     torch.cuda.empty_cache()
-    loop_parity_phase(data.pop("small_lap"), dev)
+    small_lap = data.pop("small_lap")
+    loop_parity_phase(small_lap, dev)
     cli_phase(bench, dev)
     drive = data.pop("drive")
     hdl64_launches = hdl64_phase(drive, dev)
     torch.cuda.empty_cache()
     banded_launches = banded_phase(drive, dev)
+    del drive
+    torch.cuda.empty_cache()
+    streams = [tuple(a[:n_batch] for a in bench)] + data.pop("batch")
+    batched_launches, batched_outs = batched_phase(streams, dev)
+    sharded_launches = sharded_phase(streams, batched_outs, loop_meta,
+                                     small_lap, dev)
+    del batched_outs, loop_meta
+    torch.cuda.empty_cache()
+    multihost_phase(dev)
     for e in entries:
         by_path = {"slice": launches[e["name"]],
                    "loop": loop_launches[e["name"]],
                    "hdl64": hdl64_launches[e["name"]],
-                   "banded": banded_launches[e["name"]]}
+                   "banded": banded_launches[e["name"]],
+                   "batched": batched_launches[e["name"]],
+                   "sharded": sharded_launches[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         for path, count in by_path.items():

@@ -10,12 +10,16 @@ same field names.  The caller does the ``jax → numpy`` step
 
 One field differs by design: ``SlamState.scan_index`` is a host ``int`` in
 the port.
+
+:func:`split_batched` takes a BATCHED container of the JAX package (what its
+``batched_replay`` returns: a leading B axis on every leaf) and gives B of the
+port's containers, the port's ``batched_replay`` returning a list of states.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -70,8 +74,10 @@ def _field(tree: Any, name: str):
     return getattr(tree, name)
 
 
-def _leaf(x, device: torch.device) -> torch.Tensor:
-    a = np.array(x, copy=True)          # own, writable, contiguous
+def _leaf(x, device: torch.device, index: Optional[int] = None
+          ) -> torch.Tensor:
+    a = np.array(x if index is None else np.asarray(x)[index],
+                 copy=True)             # own, writable, contiguous
     if a.dtype == np.float64:
         a = a.astype(np.float32)
     elif a.dtype == np.int64:
@@ -79,21 +85,36 @@ def _leaf(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_numpy_tree(kind: str, tree: Any, device: DeviceLike = None):
+def from_numpy_tree(kind: str, tree: Any, device: DeviceLike = None,
+                    index: Optional[int] = None):
     """Nested dict / dataclass of NumPy arrays → the port's ``kind``
-    container with tensors on ``device`` (``None`` = the CUDA card)."""
+    container with tensors on ``device`` (``None`` = the CUDA card).
+    ``index``: take entry ``index`` of the leading axis of every leaf (one
+    stream of a batched container)."""
     device = resolve_device(device)
     cls = KINDS[kind]
     kw = {}
     for f in dataclasses.fields(cls):
         if (kind, f.name) == ("SlamState", "scan_index"):
-            kw[f.name] = int(np.asarray(_field(tree, f.name)))
+            x = np.asarray(_field(tree, f.name))
+            kw[f.name] = int(x if index is None else x[index])
         elif (kind, f.name) in _NESTED:
             kw[f.name] = from_numpy_tree(_NESTED[(kind, f.name)],
-                                         _field(tree, f.name), device)
+                                         _field(tree, f.name), device, index)
         else:
-            kw[f.name] = _leaf(_field(tree, f.name), device)
+            kw[f.name] = _leaf(_field(tree, f.name), device, index)
     return cls(**kw)
+
+
+def split_batched(kind: str, tree: Any, device: DeviceLike = None) -> List:
+    """A batched JAX container (leading B axis on every leaf, as NumPy
+    arrays) → a list of B of the port's ``kind`` containers."""
+    first = tree
+    while dataclasses.is_dataclass(first) or isinstance(first, dict):
+        first = next(iter(first.values())) if isinstance(first, dict) \
+            else getattr(first, dataclasses.fields(first)[0].name)
+    return [from_numpy_tree(kind, tree, device, index=b)
+            for b in range(np.asarray(first).shape[0])]
 
 
 def to_numpy_tree(obj: Any):

@@ -1,5 +1,5 @@
 // Connected-component labelling of the (V, H) range image on Hopper, in one
-// kernel launch.
+// kernel launch -- or of B such images, (B, V, H), in one launch for all B.
 //
 // Replaces the TPU kernel frontend/pallas_label.py::propagate_labels_pallas
 // (body _kernel/_segmented_sweep) of the JAX package.  That kernel keeps the
@@ -50,6 +50,14 @@
 //   final root (the only chains that cross bands); after a third, every
 //   other pixel copies the label from its band root without leaving its
 //   block.
+// * B images in one launch (the lock-step multi-stream replay labels the
+//   scans of all its streams at once; the counterpart of the TPU kernel under
+//   jax.vmap, whose batching rule adds a grid axis): the cluster kernel runs
+//   a grid of B clusters, and the cluster index picks the image, so each
+//   image is labelled exactly as a launch of its own would label it.  The
+//   tiled kernel walks the tiles of all B images in its one cooperative
+//   launch (tile index = image * tiles of an image + tile), so it too takes
+//   B images in one launch; its phases and grid barriers are shared.
 // * An image too large for 8 bands of 227 KB goes through `label_grid_kernel`,
 //   a cooperative launch of the same tile routine: tiles of at most
 //   kTilePixels pixels (bands of whole rows where a row fits) are labelled in
@@ -258,7 +266,13 @@ __device__ __forceinline__ void label_tile(
     //    loads, and a byte per lane wastes most of each).
     const int g0 = t.i0 * H + t.j0;
     int done = 0;
-    if (t.cols == H && (g0 & 3) == 0) {
+    // four pixels a load need 16-byte labels and 4-pixel edges aligned: an
+    // image of a batch starts wherever the images before it end
+    const bool aligned =
+        (reinterpret_cast<size_t>(labels0 + g0) & 15) == 0
+        && (reinterpret_cast<size_t>(right + g0) & (4 * sizeof(Edge) - 1)) == 0
+        && (reinterpret_cast<size_t>(down + g0) & (4 * sizeof(Edge) - 1)) == 0;
+    if (t.cols == H && aligned) {
         const int quads = npx >> 2;
         const int4* lab4 = reinterpret_cast<const int4*>(labels0 + g0);
         for (int q = threadIdx.x; q < quads; q += blockDim.x) {
@@ -383,6 +397,12 @@ label_cluster_kernel(const int* __restrict__ labels0,
                      int V, int H, int band_rows) {
     extern __shared__ int loc[];
     cg::cluster_group cluster = cg::this_cluster();
+    // one cluster an image: the clusters tile the grid along x
+    const size_t image = (size_t)(blockIdx.x / cluster.num_blocks()) * V * H;
+    labels0 += image;
+    right += image;
+    down += image;
+    out += image;
     const int band = band_rows * H;
     const int i0 = (int)cluster.block_rank() * band_rows;
     const int rows = min(band_rows, V - i0);
@@ -494,24 +514,31 @@ template <typename Edge>
 __global__ void __launch_bounds__(kTileThreads)
 label_grid_kernel(const int* __restrict__ labels0,
                   const Edge* __restrict__ right,
-                  const Edge* __restrict__ down, int* out, int V, int H,
-                  int tile_rows, int tile_cols) {
+                  const Edge* __restrict__ down, int* out, int B, int V,
+                  int H, int tile_rows, int tile_cols) {
     __shared__ int words[tile_bytes(kTilePixels) / 4];
     const TileMemory m = carve(words, kTilePixels);
     int* const loc = m.loc;
     cg::grid_group grid = cg::this_grid();
     const int tiles_x = (H + tile_cols - 1) / tile_cols;
-    const int tiles = tiles_x * ((V + tile_rows - 1) / tile_rows);
+    const int image_tiles = tiles_x * ((V + tile_rows - 1) / tile_rows);
+    const int tiles = B * image_tiles;
+    const int n = V * H;
     const bool full_width = tiles_x == 1;
     const Flat local = {loc, 0};
-    const Flat global = {out, 0};
     const int lane = threadIdx.x & 31;
     const int warp0 = threadIdx.x - lane;
 
-    // 1. tile-local forests; out[g] = tile-local root as a flat index
+    // 1. tile-local forests; out[g] = tile-local root as a flat index of
+    //    the tile's image
     for (int index = blockIdx.x; index < tiles; index += gridDim.x) {
-        const Tile t = tile_at(index, tiles_x, tile_rows, tile_cols, V, H);
-        label_tile(m, 0, labels0, right, down, H, t, full_width);
+        const int image = index / image_tiles;
+        const size_t at0 = (size_t)image * n;
+        const Tile t = tile_at(index - image * image_tiles, tiles_x, tile_rows,
+                               tile_cols, V, H);
+        label_tile(m, 0, labels0 + at0, right + at0, down + at0, H, t,
+                   full_width);
+        int* const img_out = out + at0;
         const int npx = t.rows * t.cols;
         for (int base = warp0; base < npx; base += blockDim.x) {
             const int li = base + lane;
@@ -520,7 +547,7 @@ label_grid_kernel(const int* __restrict__ labels0,
             if (li < npx) {
                 const int r = li / t.cols;
                 const int rr = root / t.cols;
-                out[(t.i0 + r) * H + t.j0 + li - r * t.cols] = seg
+                img_out[(t.i0 + r) * H + t.j0 + li - r * t.cols] = seg
                     ? (t.i0 + rr) * H + t.j0 + root - rr * t.cols : kSentinel;
             }
         }
@@ -533,7 +560,13 @@ label_grid_kernel(const int* __restrict__ labels0,
     //    row.  A down edge is skipped when the edge of the pixel before it
     //    joins the same two trees (equal parents on both sides).
     for (int index = blockIdx.x; index < tiles; index += gridDim.x) {
-        const Tile t = tile_at(index, tiles_x, tile_rows, tile_cols, V, H);
+        const int image = index / image_tiles;
+        const size_t at0 = (size_t)image * n;
+        const Tile t = tile_at(index - image * image_tiles, tiles_x, tile_rows,
+                               tile_cols, V, H);
+        const Flat global = {out + at0, 0};
+        const Edge* const img_right = right + at0;
+        const Edge* const img_down = down + at0;
         for (int k0 = warp0; k0 < t.rows + t.cols; k0 += blockDim.x) {
             const int k = k0 + lane;
             bool edge = false;
@@ -543,16 +576,16 @@ label_grid_kernel(const int* __restrict__ labels0,
                 const int j = t.j0 + t.cols - 1;
                 g = i * H + j;
                 q = i * H + (j + 1 == H ? 0 : j + 1);
-                edge = !full_width && right[g] != 0 && is_set(global, g)
+                edge = !full_width && img_right[g] != 0 && is_set(global, g)
                     && is_set(global, q);
             } else if (k < t.rows + t.cols) {
                 const int i = t.i0 + t.rows - 1;
                 const int c = k - t.rows;
                 g = i * H + t.j0 + c;
                 q = g + H;
-                edge = i + 1 < V && down[g] != 0 && is_set(global, g)
+                edge = i + 1 < V && img_down[g] != 0 && is_set(global, g)
                     && is_set(global, q);
-                if (edge && c > 0 && down[g - 1] != 0
+                if (edge && c > 0 && img_down[g - 1] != 0
                         && load(global, g - 1) == load(global, g)
                         && load(global, q - 1) == load(global, q))
                     edge = false;
@@ -564,12 +597,17 @@ label_grid_kernel(const int* __restrict__ labels0,
 
     // 3. every pixel to its root.  In place: a pixel overwritten with its
     //    root still points to an ancestor, so walks through it stay valid.
-    const int n = V * H;
-    for (int base = blockIdx.x * blockDim.x + warp0; base < n;
+    //    The lanes of a warp may hold pixels of two images: each walks in
+    //    its own image's array.
+    const int total = B * n;
+    for (int base = blockIdx.x * blockDim.x + warp0; base < total;
          base += gridDim.x * blockDim.x) {
         const int p = base + lane;
-        const bool seg = p < n && is_set(global, p);
-        const int root = find_root(global, seg, p);
+        const int image = p < total ? p / n : 0;
+        const int x = p - image * n;
+        const Flat global = {out + (size_t)image * n, 0};
+        const bool seg = p < total && is_set(global, x);
+        const int root = find_root(global, seg, x);
         if (seg) out[p] = root;
     }
 }
@@ -592,7 +630,7 @@ int resident_blocks(int device) {
 // else the tiled kernel.  Nothing else does.
 template <typename Edge>
 int launch(const void* labels0_, const void* right_, const void* down_,
-           void* out_, int V, int H, cudaStream_t stream) {
+           void* out_, int B, int V, int H, cudaStream_t stream) {
     const int* labels0 = static_cast<const int*>(labels0_);
     const Edge* right = static_cast<const Edge*>(right_);
     const Edge* down = static_cast<const Edge*>(down_);
@@ -617,7 +655,7 @@ int launch(const void* labels0_, const void* right_, const void* down_,
             raised[device] = true;
         }
         cudaLaunchConfig_t config = {};
-        config.gridDim = dim3(bands);
+        config.gridDim = dim3(bands * B);        // B clusters of `bands`
         config.blockDim = dim3(kBlockThreads);
         config.dynamicSmemBytes = tile_bytes(band) + 4 * (size_t)H;
         config.stream = stream;
@@ -642,13 +680,15 @@ int launch(const void* labels0_, const void* right_, const void* down_,
     int tile_cols = H < kTilePixels ? H : kTilePixels;
     int tile_rows = kTilePixels / tile_cols;
     if (tile_rows > V) tile_rows = V;
-    const int tiles = ((H + tile_cols - 1) / tile_cols)
+    const size_t tiles = (size_t)B * ((H + tile_cols - 1) / tile_cols)
         * ((V + tile_rows - 1) / tile_rows);
     // more blocks than tiles help the two passes over global memory
-    int grid = (int)(((size_t)V * H + 4 * kTileThreads - 1) / (4 * kTileThreads));
-    if (grid < tiles) grid = tiles;
-    if (grid > resident[device]) grid = resident[device];
-    void* args[] = {&labels0, &right, &down, &out, &V, &H, &tile_rows,
+    size_t want_grid = ((size_t)B * V * H + 4 * kTileThreads - 1)
+        / (4 * kTileThreads);
+    if (want_grid < tiles) want_grid = tiles;
+    const int grid = want_grid < (size_t)resident[device]
+        ? (int)want_grid : resident[device];
+    void* args[] = {&labels0, &right, &down, &out, &B, &V, &H, &tile_rows,
                     &tile_cols};
     err = cudaLaunchCooperativeKernel(
         reinterpret_cast<void*>(label_grid_kernel<Edge>), dim3(grid),
@@ -658,15 +698,16 @@ int launch(const void* labels0_, const void* right_, const void* down_,
 
 }  // namespace
 
-// edge_bytes: 1 (bool / uint8 edge images) or 4 (int32).
+// B images of (V, H), contiguous; edge_bytes: 1 (bool / uint8 edge images)
+// or 4 (int32).  The caller keeps B * V * H below 2^31.
 extern "C" int label_ccl(const void* labels0, const void* right,
-                         const void* down, void* out, int V, int H,
+                         const void* down, void* out, int B, int V, int H,
                          int edge_bytes, void* stream) {
-    if (V <= 0 || H <= 0) return 0;
+    if (B <= 0 || V <= 0 || H <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (edge_bytes == 1)
-        return launch<unsigned char>(labels0, right, down, out, V, H, s);
+        return launch<unsigned char>(labels0, right, down, out, B, V, H, s);
     if (edge_bytes == 4)
-        return launch<int>(labels0, right, down, out, V, H, s);
+        return launch<int>(labels0, right, down, out, B, V, H, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,7 @@ flood in tensor ops on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -53,18 +53,25 @@ def _edge_masks(img: RangeImage, cfg: LegoLoamConfig):
     return segmentable, right, down
 
 
+def _label_inputs(img: RangeImage, cfg: LegoLoamConfig):
+    """(segmentable, labels0, right, down): the labelling's inputs, with
+    ``labels0`` the flat pixel index on segmentable pixels and the sentinel
+    elsewhere."""
+    segmentable, right, down = _edge_masks(img, cfg)
+    V, H = segmentable.shape
+    flat = torch.arange(V * H, dtype=torch.int32,
+                        device=segmentable.device).reshape(V, H)
+    labels0 = torch.where(segmentable, flat, SENTINEL)
+    return segmentable, labels0, right, down
+
+
 def label_components(img: RangeImage, cfg: LegoLoamConfig):
     """Connected components under the merge criterion.
 
     Returns ``(labels, segmentable)`` where ``labels[i,j]`` is the min flat
     index of the pixel's component (sentinel where not segmentable).
     """
-    segmentable, right, down = _edge_masks(img, cfg)
-    V, H = segmentable.shape
-
-    flat = torch.arange(V * H, dtype=torch.int32,
-                        device=segmentable.device).reshape(V, H)
-    labels0 = torch.where(segmentable, flat, SENTINEL)
+    segmentable, labels0, right, down = _label_inputs(img, cfg)
     labels = propagate_labels(labels0, right, down,
                               max_sweeps=cfg.projection.max_label_iters)
     return labels, segmentable
@@ -181,12 +188,19 @@ def segment_cloud(img: RangeImage, raw_stamp: Tensor,
     """Full stage-1b: label, validate, and flatten into the per-ring
     segmented cloud + outlier cloud (``cloudSegmentation``,
     ``imageProjection.cpp:352-409``)."""
+    labels, segmentable = label_components(img, cfg)
+    return _segment_labelled(img, labels, segmentable, raw_stamp, cfg)
+
+
+def _segment_labelled(img: RangeImage, labels: Tensor, segmentable: Tensor,
+                      raw_stamp: Tensor, cfg: LegoLoamConfig
+                      ) -> ProjectionOut:
+    """Stage 1b after the labelling: validate the segments and flatten."""
     V, H = img.rng.shape
     dev = img.rng.device
     G = cfg.laser.ground_scan_index
     dec = cfg.projection.ground_decimation
 
-    labels, segmentable = label_components(img, cfg)
     seg_ok = segment_validity(labels, segmentable, cfg)
 
     cols = torch.arange(H, dtype=torch.int32, device=dev)[None, :].expand(V, H)
@@ -231,3 +245,20 @@ def image_projection(raw: RawScan, cfg: LegoLoamConfig) -> ProjectionOut:
     ``imageProjection.cpp:153-174``)."""
     img = project_scan(raw, cfg)
     return segment_cloud(img, raw.stamp, cfg)
+
+
+def image_projection_batched(raws: Sequence[RawScan], cfg: LegoLoamConfig
+                             ) -> List[ProjectionOut]:
+    """Stage 1 for the scans of B streams at one lock-step: B
+    ``ProjectionOut``s, each equal to :func:`image_projection` of its scan.
+    The labelling runs once for all B range images — on the card ONE kernel
+    launch (``frontend/cuda_label.py``); projection, edge masks, segment
+    validity and compaction run per stream (they reduce and scatter within
+    one image, and a flattened batch would mix the streams' sums)."""
+    imgs = [project_scan(raw, cfg) for raw in raws]
+    inputs = [_label_inputs(img, cfg) for img in imgs]
+    labels = propagate_labels(
+        *(torch.stack([x[k] for x in inputs]) for k in (1, 2, 3)),
+        max_sweeps=cfg.projection.max_label_iters)
+    return [_segment_labelled(img, lab, x[0], raw.stamp, cfg)
+            for img, lab, x, raw in zip(imgs, labels, inputs, raws)]

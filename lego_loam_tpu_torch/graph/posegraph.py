@@ -264,16 +264,19 @@ def _cr_solve(levels, B1_inv: Tensor, r: Tensor) -> Tensor:
 
 
 def chain_preconditioner(g: FactorGraph, Ai: Tensor, Aj: Tensor, D: Tensor,
-                         node_count: Tensor, K: int):
+                         node_count: Tensor, K: int,
+                         subdiag: Optional[Tensor] = None):
     """Build M⁻¹ for the PCG from the block-tridiagonal CHAIN part of H.
 
     ``D`` is the full block diagonal (prior + regularization included);
     nodes ≥ ``node_count`` get an identity block so the padded tail stays
-    decoupled and exactly solvable."""
+    decoupled and exactly solvable.  ``subdiag``: the chain sub-diagonal
+    already summed (the factor-sharded solve sums it over its shards); by
+    default it is taken from ``g``, ``Ai``, ``Aj``."""
     aliveK = torch.arange(K, device=D.device) < node_count
     eye = torch.eye(6, dtype=D.dtype, device=D.device)
     B = torch.where(aliveK[:, None, None], D, eye)
-    A = _chain_subdiag(g, Ai, Aj, K)
+    A = _chain_subdiag(g, Ai, Aj, K) if subdiag is None else subdiag
     both = aliveK & torch.cat([aliveK.new_zeros((1,)), aliveK[:-1]])
     A = torch.where(both[:, None, None], A, 0.0)
     levels, B1_inv = _cr_factor(A, B)

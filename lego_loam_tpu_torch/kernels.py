@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -27,6 +28,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 build_seconds: Optional[float] = None   # set when this process built the library
 build_logs: dict = {}                   # source -> ptxas output of a verbose build
 
@@ -105,22 +107,25 @@ def build(verbose: bool = False, force: bool = False) -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, once however many
+    threads ask at the same time)."""
     global _lib
-    if _lib is None:
-        cdll = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # int label_ccl(labels0, right, down, out, V, H, edge_bytes, stream)
-        cdll.label_ccl.argtypes = [p, p, p, p, i, i, i, p]
-        cdll.label_ccl.restype = i
-        # int knn5_batch(const Batch* batch, total_blocks, stream);
-        # int knn5_query_block()
-        cdll.knn5_batch.argtypes = [p, i, p]
-        cdll.knn5_batch.restype = i
-        cdll.knn5_query_block.argtypes = []
-        cdll.knn5_query_block.restype = i
-        # int noop_launch(stream): an empty kernel, for the launch floor
-        cdll.noop_launch.argtypes = [p]
-        cdll.noop_launch.restype = i
-        _lib = cdll
+    with _lib_lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(build())
+            p, i = ctypes.c_void_p, ctypes.c_int
+            # int label_ccl(labels0, right, down, out, B, V, H, edge_bytes,
+            #               stream)
+            cdll.label_ccl.argtypes = [p, p, p, p, i, i, i, i, p]
+            cdll.label_ccl.restype = i
+            # int knn5_batch(const Batch* batch, total_blocks, stream);
+            # int knn5_query_block()
+            cdll.knn5_batch.argtypes = [p, i, p]
+            cdll.knn5_batch.restype = i
+            cdll.knn5_query_block.argtypes = []
+            cdll.knn5_query_block.restype = i
+            # int noop_launch(stream): an empty kernel, for the launch floor
+            cdll.noop_launch.argtypes = [p]
+            cdll.noop_launch.restype = i
+            _lib = cdll
     return _lib

@@ -18,6 +18,8 @@ determinant of the reflection fix is written out (no LU call).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..core import se3
@@ -27,6 +29,7 @@ from ..match.cuda_knn import knn5
 Tensor = torch.Tensor
 
 iteration_count = 0     # +1 per ICP iteration run by icp_align
+_count_lock = threading.Lock()
 
 
 def _det3(M: Tensor) -> Tensor:
@@ -82,7 +85,8 @@ def icp_align(src: Tensor, src_valid: Tensor, tgt: Tensor, tgt_valid: Tensor,
         delta = torch.sum((new_pose - pose) ** 2)
         pose = new_pose
         it += 1
-        iteration_count += 1
+        with _count_lock:
+            iteration_count += 1
         if not host_bool(delta > eps):
             break
 

@@ -23,13 +23,19 @@ version.  There is no fallback between the two and no backend switch:
 ONE kernel launch — and returns what the single calls would return, bit for
 bit; :func:`knn5` is its one-problem case.  The kernel's scratch (partial
 lists of the candidate slices, ticket counters) and its problem descriptors
-are cached per device and shape tuple, so a call allocates only its outputs;
-launches that share a cache entry must be ordered on one stream.
+are cached in a plan per device, CUDA stream and shape tuple, so a call
+allocates only its outputs.  Launches that share a plan are ordered on its
+one stream, and a lock held from the first pointer written into the plan's
+descriptors to the return of the launch keeps two host threads from
+overwriting each other's pointers; two streams never share scratch.  A plan
+is made outside CUDA-graph capture: capture on a stream the same shapes have
+already run on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Sequence
 
 import torch
@@ -47,6 +53,7 @@ _MAX_SPLITS = 32               # lists one thread merges per query
 _BLOCKS_PER_SM = 8             # blocks wanted on each SM
 
 launch_count = 0     # +1 per kernel launch made by knn5_cuda_grouped
+_count_lock = threading.Lock()
 
 
 def knn5_torch(query: Tensor, query_valid: Tensor, cand: Tensor,
@@ -127,9 +134,9 @@ class _Batch(ctypes.Structure):
 
 
 class _Plan:
-    """Everything of a launch that depends only on the device and the
-    shapes: geometry, scratch, and a descriptor block whose pointer fields
-    are filled in per call."""
+    """Everything of a launch that depends only on the device, the stream
+    and the shapes: geometry, scratch, and a descriptor block whose pointer
+    fields are filled in per call, under ``lock``."""
 
     def __init__(self, dev: torch.device, shapes):
         from ..kernels import lib
@@ -165,9 +172,11 @@ class _Plan:
             ticket_at += g.qblocks
             block_at += g.blocks
         self.batch_ref = ctypes.byref(self.batch)
+        self.lock = threading.Lock()
 
 
 _plans: dict = {}
+_plans_lock = threading.Lock()
 
 
 def _check_problem(k: int, query: Tensor, query_valid: Tensor, cand: Tensor,
@@ -223,41 +232,48 @@ def knn5_cuda_grouped(problems: Sequence[tuple]):
             raise ValueError(f"problem {k}: tensors the kernel cannot take")
 
     shapes = tuple((p[0].shape[0], p[2].shape[0]) for p in problems)
-    key = (dev.index, shapes)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plans[key] = _Plan(dev, shapes)
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream, shapes)
+    with _plans_lock:
+        plan = _plans.get(key)
+        if plan is None:
+            if torch.cuda.is_current_stream_capturing():
+                # the plan's zeroed counters would exist only in the graph
+                raise RuntimeError(
+                    "knn5: no plan for these shapes on the stream being "
+                    "captured; call once on that stream before capturing")
+            plan = _plans[key] = _Plan(dev, shapes)
 
-    results, keep = [], []
-    for k, (q, qv, c, cv) in enumerate(problems):
+    staged, results = [], []
+    for (q, qv, c, cv), (Q, _) in zip(problems, shapes):
         # the tile copies are 16 bytes wide: a view that starts off that
         # grid is staged through an aligned copy
         if c.data_ptr() % 16:
             c = c.clone()
-            keep.append(c)
         if cv.data_ptr() % 16:
             cv = cv.clone()
-            keep.append(cv)
-        Q = shapes[k][0]
-        out_idx = torch.empty((Q, 5), dtype=torch.int32, device=dev)
-        out_d2 = torch.empty((Q, 5), dtype=torch.float32, device=dev)
-        d = plan.batch.p[k]
-        d.query, d.query_valid = q.data_ptr(), qv.data_ptr()
-        d.cand, d.cand_valid = c.data_ptr(), cv.data_ptr()
-        d.out_idx, d.out_d2 = out_idx.data_ptr(), out_d2.data_ptr()
-        results.append((out_idx, out_d2))
+        staged.append((q, qv, c, cv))
+        results.append((torch.empty((Q, 5), dtype=torch.int32, device=dev),
+                        torch.empty((Q, 5), dtype=torch.float32, device=dev)))
     if plan.blocks == 0:
         return results
-    if torch.cuda.current_device() == dev.index:
-        err = lib().knn5_batch(plan.batch_ref, plan.blocks,
-                               torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
+    with plan.lock:
+        for d, (q, qv, c, cv), (out_idx, out_d2) in zip(plan.batch.p, staged,
+                                                        results):
+            d.query, d.query_valid = q.data_ptr(), qv.data_ptr()
+            d.cand, d.cand_valid = c.data_ptr(), cv.data_ptr()
+            d.out_idx, d.out_d2 = out_idx.data_ptr(), out_d2.data_ptr()
+        if torch.cuda.current_device() == dev.index:
             err = lib().knn5_batch(plan.batch_ref, plan.blocks,
-                                   torch.cuda.current_stream().cuda_stream)
+                                   stream.cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                err = lib().knn5_batch(plan.batch_ref, plan.blocks,
+                                       stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn5 launch failed: CUDA error {err}")
-    launch_count += 1
+    with _count_lock:
+        launch_count += 1
     return results
 
 

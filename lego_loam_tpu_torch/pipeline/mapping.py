@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -43,6 +44,7 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, host_bool, resolve_device, stage
 from ..core.types import AssociationOut, Container
+from ..distributed.sharded_pgo import optimize_poses_sharded
 from ..graph import submap_grid
 from ..graph.keyframes import (CORNER_CAP, OUTLIER_CAP, SCAN2D_CAP,
                                SURF_CAP, KeyframeClouds, KeyframeStore,
@@ -58,6 +60,7 @@ Tensor = torch.Tensor
 
 resolve_count = 0         # +1 per pose-graph re-solve after a loop closure
 pcg_iteration_count = 0   # PCG iterations summed over those re-solves
+_count_lock = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -150,8 +153,13 @@ def fuse_pose(state: MappingState, odom: Tensor) -> Tensor:
 
 
 def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
-                 assoc: AssociationOut, cfg: LegoLoamConfig):
+                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None,
+                 pgo_axis: str = "pgo"):
     """One mapping cycle.
+
+    ``mesh``: optional ``distributed/mesh.py::Mesh``; a loop closure's
+    pose-graph re-solve then runs factor-sharded over its ``pgo_axis``
+    (``distributed/sharded_pgo.py``) instead of on one device.
 
     ``clouds`` is read-only; the (possibly dropped) inserted keyframe row
     comes back for the caller to ``apply_row``.  Returns
@@ -264,7 +272,7 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
             (kf_pose, grid, graph, fcount, fdrop, map_sat, pose,
              loop_diag) = _close_loop(res, kf_pose, kf_count, grid, graph,
                                       fcount, fdrop, map_sat, pose, clouds,
-                                      cfg)
+                                      cfg, mesh, pgo_axis)
 
     new_meta = MappingMeta(
         kf_pose=kf_pose, kf_stamp=kf_stamp, kf_count=kf_count,
@@ -276,7 +284,7 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
 
 
 def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
-                aft, clouds, cfg):
+                aft, clouds, cfg, mesh=None, pgo_axis="pgo"):
     """The rest of a loop attempt (``performLoopClosure`` :767-854 and
     ``correctPoses`` :1481-1511): the diagnostics vector, the loop factor
     (a masked write: added iff the closure was accepted) and, iff accepted
@@ -325,11 +333,17 @@ def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
         latest = res["latest_idx"]
         old_latest = take_row(kf_pose, latest)
         with stage("loop_resolve", dev):
-            new_poses, iters = optimize_poses(kf_pose, kf_count, graph,
-                                              gn_iters=3, pcg_iters=64,
-                                              return_iters=True)
-        resolve_count += 1
-        pcg_iteration_count += sum(iters)
+            if mesh is None:
+                new_poses, iters = optimize_poses(
+                    kf_pose, kf_count, graph, gn_iters=3, pcg_iters=64,
+                    return_iters=True)
+            else:
+                new_poses, iters = optimize_poses_sharded(
+                    kf_pose, kf_count, graph, mesh, axis=pgo_axis,
+                    gn_iters=3, pcg_iters=64, return_iters=True)
+        with _count_lock:
+            resolve_count += 1
+            pcg_iteration_count += sum(iters)
         # carry the correction onto the CURRENT pose (which may be up to
         # keyframe_distance ahead of the last keyframe)
         delta = se3.compose(take_row(new_poses, latest),

@@ -2,8 +2,10 @@
 
 Replaces the reference's main program + channels + threads (``main.cpp:37-102``,
 ``channel.h``): the whole 4-stage pipeline is one per-scan step function
-over a single ``SlamState``, and offline replay is a Python loop over it
-(single stream; multi-stream and multi-device replay are not ported yet).
+over a single ``SlamState``, and offline replay is a Python loop over it.
+:func:`batched_replay` runs B independent streams lock-step on one device
+(stage 1 of all B scans of a step at once: one labelling-kernel launch);
+``distributed/mesh.py::replay_sharded`` spreads streams over a mesh.
 
 Cadence: odometry every scan; mapping every ``mapping_frequency_divider``
 scans (``featureAssociation.cpp:1432-1448``), decided on the host from the
@@ -20,13 +22,14 @@ functional.
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import torch
 
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, resolve_device, stage
 from ..core.types import Container, RawScan
-from ..frontend.segmentation import image_projection
+from ..frontend.segmentation import image_projection, image_projection_batched
 from ..graph import keyframes
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
@@ -57,9 +60,23 @@ def _check_device(state: SlamState, device: torch.device) -> None:
                          f"asked for")
 
 
+def _mapping_due(scan_index: int, cfg: LegoLoamConfig) -> bool:
+    divider = cfg.mapping.mapping_frequency_divider
+    return ((scan_index % divider) == (divider - 1)
+            and not cfg.pipeline.odometry_only)
+
+
 def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
-              device: DeviceLike = None):
+              device: DeviceLike = None, mesh=None, pgo_axis: str = "pgo"):
     """Process one scan through the full pipeline.
+
+    ``mesh``: optional ``distributed/mesh.py::Mesh`` for the single-stream
+    sharded mode — the loop-closure re-solve runs factor-sharded over
+    ``mesh[pgo_axis]`` (``distributed/sharded_pgo.py``).  The JAX package
+    also row-shards the keyframe cloud blocks over the mesh; that placement
+    changes no result, and in the port the blocks stay on the state's device
+    (ROADMAP A-4b).  Independent multi-stream data parallelism is
+    ``distributed/mesh.py::replay_sharded`` instead.
 
     Returns (new_state, outputs) where outputs carries:
       odom  — integrated scan-to-scan odometry pose (10 Hz),
@@ -78,18 +95,25 @@ def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
 
     with stage("projection", device):
         proj = image_projection(raw, cfg)
+    return _step_projected(state, proj, cfg, device,
+                           _mapping_due(state.scan_index, cfg), mesh,
+                           pgo_axis)
+
+
+def _step_projected(state: SlamState, proj, cfg: LegoLoamConfig,
+                    device: torch.device, run_mapping: bool, mesh=None,
+                    pgo_axis: str = "pgo"):
+    """:func:`slam_step` after stage 1: odometry, the mapping cycle when
+    ``run_mapping``, fusion."""
     with stage("odometry", device):
         odo_state, assoc = odometry_mod.odometry_step(state.odo, proj, cfg)
-
-    divider = cfg.mapping.mapping_frequency_divider
-    run_mapping = ((state.scan_index % divider) == (divider - 1)
-                   and not cfg.pipeline.odometry_only)
 
     clouds = state.mapping.clouds
     if run_mapping:
         with stage("mapping", device):
             meta, row, mapped, loop_diag = mapping_mod.mapping_step(
-                state.mapping.meta, clouds, assoc, cfg)
+                state.mapping.meta, clouds, assoc, cfg, mesh=mesh,
+                pgo_axis=pgo_axis)
             clouds = keyframes.apply_row(clouds, row)
     else:
         meta = state.mapping.meta
@@ -129,7 +153,8 @@ def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
 
 
 def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
-                cfg: LegoLoamConfig, device: DeviceLike = None):
+                cfg: LegoLoamConfig, device: DeviceLike = None, mesh=None,
+                pgo_axis: str = "pgo"):
     """Resume replay from an existing :class:`SlamState`.
 
     The chunked long-sequence and resume entry point: the
@@ -138,7 +163,8 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
     whole-sequence :func:`replay` by construction (same step function).
 
     Args: batched scans (N, P*3) / (N, P) / (N,) from
-    ``io.npz_io.pack_sequence`` on the state's device.
+    ``io.npz_io.pack_sequence`` on the state's device; ``mesh`` and
+    ``pgo_axis`` as for :func:`slam_step`.
 
     Returns (final_state, outputs dict of stacked per-scan tensors).
     """
@@ -147,7 +173,8 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
     for i in range(xyz.shape[0]):
         raw = RawScan(xyz=xyz[i].reshape(-1, 3), valid=valid[i],
                       stamp=times[i])
-        state, out = slam_step(state, raw, cfg, device=device)
+        state, out = slam_step(state, raw, cfg, device=device, mesh=mesh,
+                               pgo_axis=pgo_axis)
         outs.append(out)
     if not outs:
         return state, {}
@@ -155,10 +182,57 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
 
 
 def replay(xyz: Tensor, valid: Tensor, times: Tensor, cfg: LegoLoamConfig,
-           device: DeviceLike = None):
-    """Offline whole-sequence replay from a fresh state on ``device``.
+           device: DeviceLike = None, mesh=None, pgo_axis: str = "pgo"):
+    """Offline whole-sequence replay from a fresh state on ``device``;
+    ``mesh`` and ``pgo_axis`` as for :func:`slam_step`.
 
     Returns (final_state, outputs dict of (N, …) tensors)."""
     device = resolve_device(device)
     return replay_from(init_state(cfg, device), xyz, valid, times, cfg,
-                       device=device)
+                       device=device, mesh=mesh, pgo_axis=pgo_axis)
+
+
+def batched_replay(xyz: Tensor, valid: Tensor, times: Tensor,
+                   cfg: LegoLoamConfig, device: DeviceLike = None):
+    """Replay B independent sequences LOCK-STEP on one device — the
+    multi-session throughput mode.
+
+    At each step stage 1 runs for the B scans at once
+    (``frontend/segmentation.py::image_projection_batched``: ONE launch of
+    the labelling kernel for all B range images).  The mapping cadence
+    depends only on the step index, which the streams share, so the decision
+    is made once a step; then each stream's odometry, mapping cycle (loop
+    attempts, ICP and re-solves with their host reads included) and fusion
+    run as in :func:`slam_step`.  Each stream's result is its own
+    :func:`replay`'s: on the CPU bit for bit.
+
+    Args: (B, N, P*3) / (B, N, P) / (B, N) on ``device``.
+
+    Returns (final_states, outputs): ``final_states`` is a list of B
+    ``SlamState``s (``final_states[b]`` is stream b's); ``outputs`` the
+    dict of :func:`replay`, each (B, N, …), batch-major.
+    """
+    device = resolve_device(device)
+    if xyz.dim() != 3:
+        raise ValueError(f"xyz must be (B, N, P*3), got {tuple(xyz.shape)}")
+    B, N = xyz.shape[:2]
+    states: List[SlamState] = [init_state(cfg, device) for _ in range(B)]
+    if xyz.device != states[0].odo.odom.device:
+        raise ValueError(f"scans live on {xyz.device}, the states on "
+                         f"{states[0].odo.odom.device}")
+    per_stream: List[list] = [[] for _ in range(B)]
+    for i in range(N):
+        raws = [RawScan(xyz=xyz[b, i].reshape(-1, 3), valid=valid[b, i],
+                        stamp=times[b, i]) for b in range(B)]
+        with stage("projection", device):
+            projs = image_projection_batched(raws, cfg)
+        run_mapping = _mapping_due(i, cfg)
+        for b in range(B):
+            states[b], out = _step_projected(states[b], projs[b], cfg,
+                                             device, run_mapping)
+            per_stream[b].append(out)
+    if N == 0:
+        return states, {}
+    keys = per_stream[0][0].keys()
+    return states, {k: torch.stack([torch.stack([o[k] for o in outs])
+                                    for outs in per_stream]) for k in keys}
