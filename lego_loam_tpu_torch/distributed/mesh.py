@@ -32,14 +32,16 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """One named axis of shards.  ``devices``: this process's shards, in
-    order; ``process_count`` processes (those of the default
-    ``torch.distributed`` process group) hold as many each, and process
-    ``process_index`` holds global shards ``[process_index · len(devices),
-    …)``."""
+    order.  With ``process_group`` the mesh spans the default
+    ``torch.distributed`` process group: its ``process_count`` processes
+    hold as many shards each, process ``process_index`` holds global shards
+    ``[process_index · len(devices), …)``, and sums over the mesh are
+    all-reduced over the group."""
     devices: Tuple[torch.device, ...]
     axis: str = "data"
     process_count: int = 1
     process_index: int = 0
+    process_group: bool = False
 
     @property
     def size(self) -> int:

@@ -48,6 +48,7 @@ from ..graph.posegraph import add_factor, empty_graph
 from ..io.npz_io import pack_sequence
 from ..io.synthetic import make_sequence
 from .mesh import Mesh, replay_sharded
+from . import sharded_pgo
 from .sharded_pgo import _psum, optimize_poses_sharded
 
 TIMEOUT_S = 60.0      # process-group set-up and every collective
@@ -71,7 +72,7 @@ def global_mesh(devices: Sequence[DeviceLike], axis: str = "data") -> Mesh:
     import torch.distributed as dist
     return Mesh(devices=tuple(torch.device(d) for d in devices), axis=axis,
                 process_count=dist.get_world_size(),
-                process_index=dist.get_rank())
+                process_index=dist.get_rank(), process_group=True)
 
 
 def _psum_check(mesh: Mesh) -> float:
@@ -197,6 +198,7 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
         if process_id == 0:
             np.savez(out_path, psum=psum_val, solved=solved.cpu().numpy(),
                      pcg_iterations=np.asarray(pcg_iters), fused=fused,
+                     all_reduces=sharded_pgo.all_reduce_count,
                      n_devices=mesh.size, n_processes=num_processes)
         dist.barrier()
     finally:

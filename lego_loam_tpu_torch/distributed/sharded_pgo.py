@@ -5,21 +5,20 @@ factor axis is cut into one slice per shard of a :class:`~.mesh.Mesh`, and
 each Gauss-Newton / PCG iteration needs exactly ONE reduction per partial
 sum: the gradient, the block diagonal D, the chain sub-diagonal and each
 Hessian-vector product.  Poses stay replicated (6·K floats is tiny next to
-the factor blocks).  The solve is the one of ``graph/posegraph.py``: the
-cyclic-reduction chain preconditioner and the PCG with its relative exit
-rule (``rtol`` 1e-6), of which this module reuses every piece.
+the factor blocks).  The solve is ``graph/posegraph.py``'s own Gauss-Newton
+loop (``_gn_solve``): this module gives it the shards and the reduction.
 
 Counterpart of the JAX package's ``distributed/sharded_pgo.py``, where
 ``shard_map`` runs the body on every device and ``psum`` reduces.  In the
 port a shard is a device with its slice of the factors, and the reduction
 (:func:`_psum`) adds the shards' partials IN SHARD ORDER on the device of
-the poses, then, across processes, ``torch.distributed.all_reduce``\\ s that
-sum.  The replicated part — the poses, the preconditioner, the PCG vectors
-and scalars — is computed once there, not once per shard; each shard
-receives the vectors it multiplies.  Every process ends with the same bits
-(a collective's result is the same on every rank), so all of them take the
-same number of PCG iterations: one counted host read per iteration, as in
-the single-device solve.
+the poses, then, on a mesh over a process group, all-reduces that sum
+(``torch.distributed.all_reduce``).  The replicated part — the poses, the
+preconditioner, the PCG vectors and scalars — is computed once there, not
+once per shard; each shard receives the vectors it multiplies.  Every
+process ends with the same bits (a collective's result is the same on every
+rank), so all of them take the same number of PCG iterations: one counted
+host read per iteration, as in the single-device solve.
 
 The partial sums differ from the single-device ``index_add_`` order by
 rounding only; ``tests/test_torch_distributed.py`` states the tolerances.
@@ -31,14 +30,12 @@ import threading
 
 import torch
 
-from ..core import se3
-from ..graph.posegraph import (FactorGraph, _bmm_tn, _bmv, _bmv_t,
-                               _chain_subdiag, _factor_blocks, _pcg,
-                               chain_preconditioner)
+from ..graph.posegraph import FactorGraph, _gn_solve
 
 Tensor = torch.Tensor
 
 solve_count = 0          # +1 per call of optimize_poses_sharded
+all_reduce_count = 0     # +1 per torch.distributed.all_reduce of _psum
 _count_lock = threading.Lock()
 
 
@@ -78,13 +75,18 @@ def _shards(g: FactorGraph, mesh):
 
 def _psum(parts, mesh, home: torch.device) -> Tensor:
     """The sum over every shard of the mesh: this process's partials added
-    in shard order on ``home``, then summed across processes."""
+    in shard order on ``home``, then, on a mesh over a process group,
+    all-reduced across its processes (also with one process: the backend's
+    reduction then runs and adds nothing)."""
+    global all_reduce_count
     total = parts[0].to(home)
     for p in parts[1:]:
         total = total + p.to(home)
-    if mesh.process_count > 1:
+    if mesh.process_group:
         import torch.distributed as dist
         dist.all_reduce(total)
+        with _count_lock:
+            all_reduce_count += 1
     return total
 
 
@@ -100,52 +102,7 @@ def optimize_poses_sharded(poses: Tensor, node_count: Tensor, g: FactorGraph,
     mesh.check_axis(axis)
     with _count_lock:
         solve_count += 1
-    K = poses.shape[0]
     home = poses.device
-    shards = _shards(g, mesh)
-    alive = (torch.arange(K, device=home) < node_count)[:, None]
-    prior_w2 = g.prior_weight.to(home) ** 2
-    prior_w = torch.sqrt(prior_w2)
-    prior = g.prior.to(home)
-    eye = torch.eye(6, dtype=poses.dtype, device=home)
-    iters = []
-    for _ in range(gn_iters):
-        blocks, grads, diags, subs = [], [], [], []
-        for dev, local, gi, gj in shards:
-            r, Ai, Aj = _factor_blocks(poses.to(dev), local, gi, gj)
-            blocks.append((Ai, Aj))
-            grad = torch.zeros((K, 6), dtype=poses.dtype, device=dev)
-            grad.index_add_(0, gi, _bmv_t(Ai, r))
-            grad.index_add_(0, gj, _bmv_t(Aj, r))
-            grads.append(grad)
-            D = torch.zeros((K, 6, 6), dtype=poses.dtype, device=dev)
-            D.index_add_(0, gi, _bmm_tn(Ai, Ai))
-            D.index_add_(0, gj, _bmm_tn(Aj, Aj))
-            diags.append(D)
-            subs.append(_chain_subdiag(local, Ai, Aj, K))
-        grad = _psum(grads, mesh, home)
-        grad[0] += prior_w * ((poses[0] - prior) * prior_w)
-        D = _psum(diags, mesh, home)
-        D[0] += torch.diag(prior_w2)
-        D = D + 1e-6 * eye
-        M_inv = chain_preconditioner(None, None, None, D, node_count, K,
-                                     subdiag=_psum(subs, mesh, home))
-
-        def matvec(x):
-            parts = []
-            for (dev, _, gi, gj), (Ai, Aj) in zip(shards, blocks):
-                xd = x.to(dev)
-                u = _bmv(Ai, xd[gi]) + _bmv(Aj, xd[gj])
-                y = torch.zeros((K, 6), dtype=x.dtype, device=dev)
-                y.index_add_(0, gi, _bmv_t(Ai, u))
-                y.index_add_(0, gj, _bmv_t(Aj, u))
-                parts.append(y)
-            y = _psum(parts, mesh, home)
-            y[0] += prior_w2 * x[0]
-            return (y + 1e-8 * x) * alive
-
-        delta, it = _pcg(matvec, -grad * alive, M_inv, pcg_iters)
-        upd = poses + delta * alive
-        poses = torch.where(alive, se3.normalize_angles(upd), upd)
-        iters.append(it)
-    return (poses, iters) if return_iters else poses
+    return _gn_solve(poses, node_count, g, _shards(g, mesh),
+                     lambda parts: _psum(parts, mesh, home),
+                     gn_iters, pcg_iters, return_iters)

@@ -159,23 +159,22 @@ def _bmm_tn(a: Tensor, b: Tensor) -> Tensor:
 
 
 def _hvp(x: Tensor, gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
-         prior_w2: Tensor, K: int) -> Tensor:
-    """H·x where H = Σ_f [Ai Aj]ᵀ[Ai Aj] + prior — matrix-free."""
+         K: int) -> Tensor:
+    """Σ_f [Ai Aj]ᵀ[Ai Aj]·x over the given factors — matrix-free (the
+    prior is added by the caller, once)."""
     u = _bmv(Ai, x[gi]) + _bmv(Aj, x[gj])
     y = torch.zeros((K, 6), dtype=x.dtype, device=x.device)
     y.index_add_(0, gi, _bmv_t(Ai, u))
     y.index_add_(0, gj, _bmv_t(Aj, u))
-    y[0] += prior_w2 * x[0]
     return y
 
 
 def _block_diag(gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
-                prior_w2: Tensor, K: int) -> Tensor:
-    """The K diagonal 6×6 blocks of H."""
+                K: int) -> Tensor:
+    """The K diagonal 6×6 blocks of Σ_f [Ai Aj]ᵀ[Ai Aj] (no prior)."""
     D = torch.zeros((K, 6, 6), dtype=Ai.dtype, device=Ai.device)
     D.index_add_(0, gi, _bmm_tn(Ai, Ai))
     D.index_add_(0, gj, _bmm_tn(Aj, Aj))
-    D[0] += torch.diag(prior_w2)
     return D
 
 
@@ -263,22 +262,19 @@ def _cr_solve(levels, B1_inv: Tensor, r: Tensor) -> Tensor:
     return x[:K]
 
 
-def chain_preconditioner(g: FactorGraph, Ai: Tensor, Aj: Tensor, D: Tensor,
-                         node_count: Tensor, K: int,
-                         subdiag: Optional[Tensor] = None):
+def chain_preconditioner(subdiag: Tensor, D: Tensor, node_count: Tensor,
+                         K: int):
     """Build M⁻¹ for the PCG from the block-tridiagonal CHAIN part of H.
 
-    ``D`` is the full block diagonal (prior + regularization included);
-    nodes ≥ ``node_count`` get an identity block so the padded tail stays
-    decoupled and exactly solvable.  ``subdiag``: the chain sub-diagonal
-    already summed (the factor-sharded solve sums it over its shards); by
-    default it is taken from ``g``, ``Ai``, ``Aj``."""
+    ``subdiag``: its sub-diagonal blocks (:func:`_chain_subdiag`, summed
+    over every factor shard); ``D``: the full block diagonal (prior +
+    regularization included).  Nodes ≥ ``node_count`` get an identity block
+    so the padded tail stays decoupled and exactly solvable."""
     aliveK = torch.arange(K, device=D.device) < node_count
     eye = torch.eye(6, dtype=D.dtype, device=D.device)
     B = torch.where(aliveK[:, None, None], D, eye)
-    A = _chain_subdiag(g, Ai, Aj, K) if subdiag is None else subdiag
     both = aliveK & torch.cat([aliveK.new_zeros((1,)), aliveK[:-1]])
-    A = torch.where(both[:, None, None], A, 0.0)
+    A = torch.where(both[:, None, None], subdiag, 0.0)
     levels, B1_inv = _cr_factor(A, B)
     alive = aliveK[:, None].to(D.dtype)
 
@@ -315,37 +311,61 @@ def _pcg(matvec, b: Tensor, M_inv, iters: int, rtol: float = 1e-6):
     return x, it
 
 
-def optimize_poses(poses: Tensor, node_count: Tensor, g: FactorGraph,
-                   gn_iters: int = 8, pcg_iters: int = 64,
-                   return_iters: bool = False):
-    """Batched GN over all poses.  Nodes ≥ ``node_count`` are frozen (their
-    factor slots are invalid anyway).  Returns corrected (K,6); with
-    ``return_iters`` also the list of PCG iteration counts, one per GN step
-    (host ints)."""
+def _gn_solve(poses: Tensor, node_count: Tensor, g: FactorGraph, shards,
+              reduce, gn_iters: int, pcg_iters: int, return_iters: bool):
+    """Batched GN over all poses, the factors split into ``shards``: (device,
+    slice of ``g``, its i and j as int64) each.  Every partial sum — the
+    gradient, D, the chain sub-diagonal, each H·x — is computed per shard on
+    its device and summed by ``reduce`` (list of partials → their sum on the
+    device of ``poses``); the prior, the preconditioner and the PCG are
+    computed once there.  One shard and ``reduce = parts[0]`` is the
+    single-device solve."""
     K = poses.shape[0]
-    dev = poses.device
-    gi = g.i.to(torch.int64)
-    gj = g.j.to(torch.int64)
-    alive = (torch.arange(K, device=dev) < node_count)[:, None]
+    home = poses.device
+    alive = (torch.arange(K, device=home) < node_count)[:, None]
     prior_w2 = g.prior_weight ** 2
     prior_w = torch.sqrt(prior_w2)
-    eye = torch.eye(6, dtype=poses.dtype, device=dev)
+    eye = torch.eye(6, dtype=poses.dtype, device=home)
     iters = []
     for _ in range(gn_iters):
-        r, Ai, Aj = _factor_blocks(poses, g, gi, gj)
-        grad = torch.zeros((K, 6), dtype=poses.dtype, device=dev)
-        grad.index_add_(0, gi, _bmv_t(Ai, r))
-        grad.index_add_(0, gj, _bmv_t(Aj, r))
+        blocks, grads, diags, subs = [], [], [], []
+        for dev, local, gi, gj in shards:
+            r, Ai, Aj = _factor_blocks(poses.to(dev), local, gi, gj)
+            blocks.append((Ai, Aj))
+            grad = torch.zeros((K, 6), dtype=poses.dtype, device=dev)
+            grad.index_add_(0, gi, _bmv_t(Ai, r))
+            grad.index_add_(0, gj, _bmv_t(Aj, r))
+            grads.append(grad)
+            diags.append(_block_diag(gi, gj, Ai, Aj, K))
+            subs.append(_chain_subdiag(local, Ai, Aj, K))
+        grad = reduce(grads)
         grad[0] += prior_w * ((poses[0] - g.prior) * prior_w)
-
-        D = _block_diag(gi, gj, Ai, Aj, prior_w2, K) + 1e-6 * eye
-        M_inv = chain_preconditioner(g, Ai, Aj, D, node_count, K)
+        D = reduce(diags)
+        D[0] += torch.diag(prior_w2)
+        M_inv = chain_preconditioner(reduce(subs), D + 1e-6 * eye,
+                                     node_count, K)
 
         def matvec(x):
-            return (_hvp(x, gi, gj, Ai, Aj, prior_w2, K) + 1e-8 * x) * alive
+            y = reduce([_hvp(x.to(dev), gi, gj, Ai, Aj, K)
+                        for (dev, _, gi, gj), (Ai, Aj) in zip(shards, blocks)])
+            y[0] += prior_w2 * x[0]
+            return (y + 1e-8 * x) * alive
 
         delta, it = _pcg(matvec, -grad * alive, M_inv, pcg_iters)
         upd = poses + delta * alive
         poses = torch.where(alive, se3.normalize_angles(upd), upd)
         iters.append(it)
     return (poses, iters) if return_iters else poses
+
+
+def optimize_poses(poses: Tensor, node_count: Tensor, g: FactorGraph,
+                   gn_iters: int = 8, pcg_iters: int = 64,
+                   return_iters: bool = False):
+    """Batched GN over all poses.  Nodes ≥ ``node_count`` are frozen (their
+    factor slots are invalid anyway).  Returns corrected (K,6); with
+    ``return_iters`` also the list of PCG iteration counts, one per GN step
+    (host ints).  ``distributed/sharded_pgo.py`` runs the same solve with
+    the factors sharded over a mesh."""
+    shard = (poses.device, g, g.i.to(torch.int64), g.j.to(torch.int64))
+    return _gn_solve(poses, node_count, g, [shard], lambda parts: parts[0],
+                     gn_iters, pcg_iters, return_iters)

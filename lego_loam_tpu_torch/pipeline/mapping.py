@@ -35,6 +35,7 @@ Stage 4 (TransformFusion, ``transformFusion.cpp``) collapses to
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 
@@ -332,15 +333,11 @@ def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
         dev = kf_pose.device
         latest = res["latest_idx"]
         old_latest = take_row(kf_pose, latest)
+        solve = (optimize_poses if mesh is None else functools.partial(
+            optimize_poses_sharded, mesh=mesh, axis=pgo_axis))
         with stage("loop_resolve", dev):
-            if mesh is None:
-                new_poses, iters = optimize_poses(
-                    kf_pose, kf_count, graph, gn_iters=3, pcg_iters=64,
-                    return_iters=True)
-            else:
-                new_poses, iters = optimize_poses_sharded(
-                    kf_pose, kf_count, graph, mesh, axis=pgo_axis,
-                    gn_iters=3, pcg_iters=64, return_iters=True)
+            new_poses, iters = solve(kf_pose, kf_count, graph, gn_iters=3,
+                                     pcg_iters=64, return_iters=True)
         with _count_lock:
             resolve_count += 1
             pcg_iteration_count += sum(iters)

@@ -98,6 +98,11 @@ def test_cross_process_solve_matches_single_device(results):
                                  pcg_iters=64, return_iters=True)
     np.testing.assert_allclose(results["solved"], tnp(ref), rtol=1e-4,
                                atol=1e-4)
+    # every partial sum went through the backend's all_reduce: the psum
+    # check's one, then per GN step the gradient, D, the chain sub-diagonal
+    # and one H·x a PCG iteration
+    it = results["pcg_iterations"].tolist()
+    assert int(results["all_reduces"]) == 1 + 3 * len(it) + sum(it)
     assert np.abs(results["solved"] - tnp(poses)).max() > 0.01
     assert len(results["pcg_iterations"]) == 6
     assert max(results["pcg_iterations"]) < 64
