@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scans N] [--profile N]
+    python3 chip_smoke.py [--scans N] [--profile N] [--long]
 
 Needs one CUDA card, ``nvcc`` and nothing else; exits non-zero without a
 card.  The synthetic sequences it replays are made on the host in worker
@@ -27,10 +27,22 @@ processes from the start, beside the kernel phases.  It
    run,
 6. ``resolve``: one pose-graph re-solve and grid rebuild on the loop run's
    final graph, timed; the solve must not raise the graph's residual,
-   ``loop_parity``: a small loop-closing lap on the card and on the CPU,
-   keyframe and loop-factor counts equal, fused poses within 0.1 m,
+   ``loop_parity``: a small loop-closing lap twice on the card and once on
+   the CPU — the two card runs bit-equal in every output and state field
+   (``determinism``), card and CPU keyframe and loop-factor counts equal,
+   fused poses within 0.1 m,
 7. ``cli``: ``python -m lego_loam_tpu_torch.run`` (its ``main``) on an
-   ``.npz`` of the slice's sequence, on the card; every artifact written,
+   ``.npz`` of the slice's sequence, on the card; every artifact written;
+   then on a ROS1 ``.bag`` of the same scans (``io/rosbag.py``), whose
+   counts, keyframe poses and trajectories must equal the ``.npz`` run's,
+   ``streaming``: the live mode (``run.stream``: native channel, pinned
+   double buffer, one ``slam_step`` a scan) on the same scans with
+   ``vlp16()``: latency per scan against the sensor's 100 ms, the fused
+   trajectory bit-equal to ``replay``'s, and the pinned feed checked scan
+   by scan; ``odometry``: ``BASELINE.json`` config 3 (odometry only, no
+   K2); ``multisession``: config 5, ``benchmarks/multi_session.py``'s two
+   sessions (314 + 200 scans) whole and split at a checkpoint, the split
+   bit-equal,
 8. ``hdl64``: ``hdl64()`` as shipped (KITTI geometry, 64 x 2083 image,
    loop closure on, banded search off) on the 330-scan drive of
    ``benchmarks/kitti64_drive.py``, whose 314-scan lap closes a loop; its
@@ -54,8 +66,16 @@ processes from the start, beside the kernel phases.  It
    processes over ``gloo`` on the card and in 1 process over ``nccl``, each
    held to the single-device solve and to each stream's own replay, every
    partial sum counted through the backend's ``all_reduce``,
-10. with ``--profile N``, traces N more scans with ``torch.profiler`` and
-   prints the device's busy share and the kernels that take most of it,
+10. with ``--profile N``, traces N more scans (scan-steps) of ``slice``,
+   ``batched`` and ``sharded`` with ``torch.profiler`` and prints the
+   device's busy share and the kernels that take most of it; ``--long``
+   also runs (and sets ``--profile 20`` unless given) ``stevens``
+   (``BASELINE.json`` config 2 at ``benchmarks/stevens_stress.py``'s
+   default: the figure-eight tiled to 2000 scans), ``d1_cost`` (the
+   order-fixed sums against the parent's ``index_add_``, in turns),
+   ``scaling`` (``multihost --bench`` in 1 and 2 processes beside two
+   threads), ``hdl64_noise`` (the ``hdl64`` drive's ATE under noise of 1
+   to 100 µm) and ``hdl64_cpu`` (the ``hdl64`` drive on the CPU cores),
 11. prints one ``{"kernels": [...]}`` line (``launches``: every main path)
    and, last, the ``{"ok": ...}`` line.
 
@@ -1110,21 +1130,44 @@ def resolve_phase(state, dev):
     assert after <= before * (1 + 1e-6), (before, after)
 
 
+def state_differences(a, b) -> list:
+    """The fields (dotted paths) in which two port states differ, bit for
+    bit (NaN equal to NaN)."""
+    from lego_loam_tpu_torch import convert
+    out = []
+
+    def walk(x, y, path):
+        if isinstance(y, dict):
+            for k in y:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif not np.array_equal(x, y, equal_nan=True):
+            out.append(path)
+    walk(convert.to_numpy_tree(a), convert.to_numpy_tree(b), "")
+    return out
+
+
 def loop_parity_phase(small_lap, dev):
     """The JAX package's loop-closure test lap (110 scans, 450 columns)
-    through ``replay`` on the card (kernels) and on the CPU (plain
-    versions): keyframe and loop-factor counts equal, fused poses within
-    0.1 m (sums in another order and nearest-neighbour ties may move a
-    pose; a closure found on one side only would move it far more)."""
+    through ``replay`` twice on the card (kernels) and once on the CPU
+    (plain versions).  ``determinism``: the two card runs must be bit-equal
+    — every output and every field of the final state (the float sums are
+    order-fixed, ``core/segsum.py``).  Card against CPU: keyframe and
+    loop-factor counts equal, fused poses within 0.1 m (the 5-NN kernel and
+    the plain version may break a tie differently; a closure found on one
+    side only would move a pose far more)."""
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
     from lego_loam_tpu_torch.pipeline.slam import replay
     scans, gt, times = small_lap
     cfg = small_loop_config()
-    runs = {}
-    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+    runs, card_runs = {}, []
+    for name, where in (("card", dev), ("card_again", dev),
+                        ("cpu", torch.device("cpu"))):
         x, v, t = pack_sequence(scans, times, cfg, device=where)
         t0 = time.perf_counter()
         state, outs = replay(x, v, t, cfg, device=where)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            card_runs.append((state, outs))
         meta = state.mapping.meta
         kf, factors = int(meta.kf_count), int(meta.factor_count)
         runs[name] = {
@@ -1132,6 +1175,10 @@ def loop_parity_phase(small_lap, dev):
             "fused": outs["fused"].cpu().numpy(),
             "accepted": int((outs["loop_diag"][:, 1] > 0).sum()),
             "seconds": time.perf_counter() - t0}
+    (s1, o1), (s2, o2) = card_runs
+    outputs_differing = [k for k in o1 if not torch.equal(o1[k], o2[k])]
+    state_differing = state_differences(s1, s2)
+    del card_runs, s1, s2, o1, o2
     g, c = runs["card"], runs["cpu"]
     dev_m = float(np.max(np.linalg.norm(
         g["fused"][:, 3:] - c["fused"][:, 3:], axis=1)))
@@ -1139,10 +1186,17 @@ def loop_parity_phase(small_lap, dev):
     _, ate_c = pose_errors(c["fused"], gt)
     emit({"phase": "loop_parity", "scans": len(scans), **SMALL_LAP,
           "config": "tests/test_loop_e2e.py::small_loop_cfg geometry",
-          "card": {k: v for k, v in g.items() if k != "fused"},
-          "cpu": {k: v for k, v in c.items() if k != "fused"},
+          **{k: {f: x for f, x in r.items() if f != "fused"}
+             for k, r in runs.items()},
           "max_fused_position_diff_m": dev_m,
-          "ate_rmse_card": ate_g["rmse"], "ate_rmse_cpu": ate_c["rmse"]})
+          "ate_rmse_card": ate_g["rmse"], "ate_rmse_cpu": ate_c["rmse"],
+          "determinism": {
+              "outputs_differing": outputs_differing,
+              "state_fields_differing": state_differing,
+              "max_fused_diff_two_card_runs": float(np.max(np.abs(
+                  g["fused"] - runs["card_again"]["fused"])))}})
+    assert not outputs_differing and not state_differing, (
+        outputs_differing, state_differing)
     assert g["keyframes"] == c["keyframes"], (g["keyframes"], c["keyframes"])
     assert g["loop_factors"] == c["loop_factors"] >= 1, (
         g["loop_factors"], c["loop_factors"])
@@ -1153,9 +1207,14 @@ def cli_phase(bench, dev):
     """``python -m lego_loam_tpu_torch.run --input seq.npz --output DIR``
     (its ``main``, in this process, on the card) on the slice's sequence:
     loop closure on (the CLI's default ``vlp16()``), every artifact the
-    JAX package's CLI writes, the ATE in ``metrics.json``."""
+    JAX package's CLI writes, the ATE in ``metrics.json``.  Then the same
+    scans written to a ROS1 ``.bag`` (the port's ``io/rosbag.py::write_bag``,
+    uncompressed, its one form) and replayed through ``--input x.bag``:
+    keyframe and factor counts, keyframe poses and the fused trajectory
+    equal to the ``.npz`` run's, bit for bit."""
     from lego_loam_tpu_torch import run
     from lego_loam_tpu_torch.io.npz_io import save_sequence
+    from lego_loam_tpu_torch.io.rosbag import write_bag
     scans, gt, times = bench
     files = ("trajectory_odom.tum", "trajectory_fused.tum",
              "trajectory_mapped.tum", "trajectory_gt.tum", "map2d.pgm",
@@ -1174,15 +1233,47 @@ def cli_phase(bench, dev):
             metrics = json.load(f)
         kf_poses = np.load(os.path.join(out, "keyframe_poses.npy"))
         n_map = len(np.load(os.path.join(out, "global_map.npy")))
+
+        bag = os.path.join(tmp, "seq.bag")
+        t0 = time.perf_counter()
+        write_bag(bag, scans, [float(t) for t in times])
+        write_s = time.perf_counter() - t0
+        bag_out = os.path.join(tmp, "bag_out")
+        t0 = time.perf_counter()
+        bag_rc = run.main(["--input", bag, "--output", bag_out])
+        bag_seconds = time.perf_counter() - t0
+        with open(os.path.join(bag_out, "metrics.json")) as f:
+            bag_metrics = json.load(f)
+        bag_poses_equal = np.array_equal(
+            np.load(os.path.join(bag_out, "keyframe_poses.npy")), kf_poses)
+        fused_equal = {}
+        for name in ("trajectory_fused.tum", "trajectory_odom.tum"):
+            with open(os.path.join(out, name)) as a, \
+                    open(os.path.join(bag_out, name)) as b:
+                fused_equal[name] = a.read() == b.read()
+        bag_bytes = os.path.getsize(bag)
+    bag_entry = {
+        "rc": bag_rc, "bag_bytes": bag_bytes, "write_bag_s": write_s,
+        "read_bag_s": bag_metrics["stages"]["read_bag"]["total_s"],
+        "replay_s": bag_metrics["stages"]["replay"]["total_s"],
+        "seconds": bag_seconds, "scans_per_sec": bag_metrics["scans_per_sec"],
+        "keyframes": bag_metrics.get("keyframes"),
+        "factors": bag_metrics.get("factors"),
+        "keyframe_poses_equal_npz": bag_poses_equal,
+        "trajectories_equal_npz": fused_equal}
     emit({"phase": "cli", "rc": rc, "seconds": seconds, "missing": missing,
           "scans_per_sec": metrics.get("scans_per_sec"),
           "ate": metrics.get("ate"), "keyframes": metrics.get("keyframes"),
           "factors": metrics.get("factors"),
-          "global_map_points": n_map})
+          "global_map_points": n_map, "bag": bag_entry})
     assert rc == 0 and not missing, missing
     assert metrics["ate"]["rmse"] < 0.5, metrics["ate"]
     assert kf_poses.shape == (metrics["keyframes"], 6)
     assert np.isfinite(kf_poses).all() and n_map > 1000
+    assert bag_rc == 0, bag_rc
+    assert (bag_entry["keyframes"], bag_entry["factors"]) == (
+        metrics["keyframes"], metrics["factors"]), bag_entry
+    assert bag_poses_equal and all(fused_equal.values()), bag_entry
 
 
 # --------------------------------------------------------------------------
@@ -1241,21 +1332,24 @@ def drive_sequence(chunks, check):
     return scans, gt, times
 
 
-def timed_replay(seq, cfg, dev, with_fused: bool = False) -> dict:
+def timed_replay(seq, cfg, dev, with_fused: bool = False,
+                 packed=None) -> dict:
     """``replay`` of a whole sequence on the card after a warm-up on its
     first 10 scans; every count zeroed just before the run and read just
     after; wall time ends in ``torch.cuda.synchronize()``.  ``with_fused``:
-    the fused poses too, under ``fused``."""
+    the fused poses too, under ``fused``; ``packed``: the scans already
+    packed on the card (``seq``'s scans are then not read)."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.frontend import cuda_label
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
     from lego_loam_tpu_torch.loop import icp
     from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline import mapping
     from lego_loam_tpu_torch.pipeline.slam import replay
 
     scans, gt, times = seq
-    n = len(scans)
-    x, v, t = pack_sequence(scans, times, cfg, device=dev)
+    x, v, t = packed or pack_sequence(scans, times, cfg, device=dev)
+    n = x.shape[0]
     replay(x[:10], v[:10], t[:10], cfg, device=dev)         # warm-up
     torch.cuda.synchronize()
 
@@ -1265,6 +1359,8 @@ def timed_replay(seq, cfg, dev, with_fused: bool = False) -> dict:
     cuda_label.launch_count = 0
     cuda_knn.launch_count = 0
     icp.iteration_count = 0
+    mapping.resolve_count = 0
+    mapping.pcg_iteration_count = 0
     with launch_shapes() as shapes:
         t0 = time.perf_counter()
         state, outs = replay(x, v, t, cfg, device=dev)
@@ -1273,6 +1369,8 @@ def timed_replay(seq, cfg, dev, with_fused: bool = False) -> dict:
     launches = {"label_ccl": cuda_label.launch_count,
                 "knn5": cuda_knn.launch_count}
     icp_iters = icp.iteration_count
+    resolves = mapping.resolve_count
+    pcg_iters = mapping.pcg_iteration_count
     syncs = D.sync_count()
     stages = D.stage_times_ms()
     peak = torch.cuda.max_memory_allocated()
@@ -1302,6 +1400,8 @@ def timed_replay(seq, cfg, dev, with_fused: bool = False) -> dict:
         "attempts_with_candidate": int(((diag[:, 0] > 0)
                                         & (diag[:, 2] < 1e6)).sum()),
         "accepted": int((diag[:, 1] > 0).sum()), "icp_iterations": icp_iters,
+        "resolves": resolves, "pcg_iterations": pcg_iters,
+        "ms_per_resolve": stages.get("loop_resolve", 0.0) / max(resolves, 1),
         "kf_dropped": int(meta.kf_dropped),
         "factor_dropped": int(meta.factor_dropped),
         "map_sat": int(meta.map_sat), "launches": launches,
@@ -1367,11 +1467,12 @@ BATCH_SCANS = 100
 SHARDED_SCANS = 60
 
 
-def batched_phase(streams, dev):
+def batched_phase(streams, dev, profile_scans: int = 0):
     """``pipeline.slam.batched_replay`` of 4 streams lock-step, ``vlp16()``
     as shipped (loop closure on), beside ``replay`` of stream 0 alone in
     the same call.  Every count zeroed just before each run and read just
-    after; K1 must launch once per scan-step for all 4 streams."""
+    after; K1 must launch once per scan-step for all 4 streams.  With
+    ``profile_scans``, that many more scan-steps are traced after."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.frontend import cuda_label
@@ -1400,6 +1501,10 @@ def batched_phase(streams, dev):
     syncs = D.sync_count()
     stages = D.stage_times_ms()
     peak = torch.cuda.max_memory_allocated()
+    if profile_scans:
+        p = profile_scans
+        profile_phase("batched", lambda: batched_replay(
+            x[:, :p], v[:, :p], t[:, :p], cfg, device=dev), p)
     del x, v, t, packed
 
     per_stream = []
@@ -1499,7 +1604,8 @@ def knn_two_streams_check(dev, calls: int = 50):
             "plans_for_shape": len(plan_streams)}
 
 
-def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev):
+def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
+                  profile_scans: int = 0):
     """``distributed.mesh.replay_sharded`` over a mesh of 2 shards on the
     one card (two host threads, K2 and K1 from both) on the first
     ``SHARDED_SCANS`` scans of the batched streams, against
@@ -1509,7 +1615,8 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev):
     at every accepted closure, each re-solve held to ``optimize_poses`` on
     its own input graph (the solve tolerance), the counts to the run without
     a mesh, and the fused poses' difference reported beside that of two
-    runs without a mesh."""
+    runs without a mesh.  With ``profile_scans``, that many scan-steps of
+    ``replay_sharded`` are traced after its timed run."""
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.distributed import sharded_pgo
     from lego_loam_tpu_torch.distributed.mesh import make_mesh, replay_sharded
@@ -1535,6 +1642,10 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev):
     wall = time.perf_counter() - t0
     launches = {"label_ccl": cuda_label.launch_count,
                 "knn5": cuda_knn.launch_count}
+    if profile_scans:
+        p = profile_scans
+        profile_phase("sharded", lambda: replay_sharded(
+            x[:, :p], v[:, :p], t[:, :p], cfg, mesh), p)
     del x, v, t, packed
     B = len(streams)
     diff = float(torch.max(torch.linalg.norm(
@@ -1654,10 +1765,13 @@ MULTIHOST_SCANS = 5
 MULTIHOST_WAIT_S = 300
 
 
-def multihost_run(procs: int, backend: str, dev, out: str) -> dict:
+def multihost_run(procs: int, backend: str, dev, out: str,
+                  local_devices: int = 2, bench: bool = False,
+                  n_scans: int = MULTIHOST_SCANS) -> dict:
     """``python -m lego_loam_tpu_torch.distributed.multihost`` in ``procs``
-    processes on this card (2 local shards each): their results, or an
-    error with their stderr.  Every process is killed on a timeout."""
+    processes on this card (``local_devices`` shards each; ``bench``: the
+    timed replay): their results, or an error with their stderr.  Every
+    process is killed on a timeout."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -1668,8 +1782,8 @@ def multihost_run(procs: int, backend: str, dev, out: str) -> dict:
     cmd = [sys.executable, "-m", "lego_loam_tpu_torch.distributed.multihost",
            "--coordinator", f"127.0.0.1:{port}", "--num-processes",
            str(procs), "--out", out, "--backend", backend, "--device",
-           f"cuda:{dev.index or 0}", "--local-devices", "2", "--n-scans",
-           str(MULTIHOST_SCANS)]
+           f"cuda:{dev.index or 0}", "--local-devices", str(local_devices),
+           "--n-scans", str(n_scans)] + (["--bench"] if bench else [])
     workers = [subprocess.Popen(cmd + ["--process-id", str(k)], cwd=root,
                                 env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE)
@@ -1749,18 +1863,516 @@ def multihost_phase(dev):
         assert r["max_replay_diff"] < 0.01, r
 
 
-def profile_phase(state, packed, n, cfg, dev):
-    """Trace ``n`` scans of a continued replay; device busy share = summed
-    kernel time / wall time of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# --------------------------------------------------------------------------
+# phase 10: the input paths and the BASELINE.json configurations
+# --------------------------------------------------------------------------
+
+FEED_CHECK_SCANS = 50
+
+
+def feed_check(scans, cfg, dev) -> dict:
+    """``io/native_feeder.py::DeviceFeed`` on the card: ``FEED_CHECK_SCANS``
+    scans through the channel into its two pinned buffers, each copy queued
+    behind a ~1 ms device sleep so that the copies lag the host's next
+    ``recv``; every scan's device copy must equal what ``pack_scan_native``
+    makes of its source (one pinned buffer without the event wait would
+    hand a later scan's points to an earlier copy)."""
+    from lego_loam_tpu_torch.io import native_feeder as nf
+    C = cfg.pipeline.max_points
+    channel = nf.ScanChannel(C, depth=1)
+    sources = scans[:FEED_CHECK_SCANS]
+
+    def produce():
+        try:
+            for i, pts in enumerate(sources):
+                channel.send(pts, 0.1 * i)
+        finally:
+            channel.close()
+
+    producer = threading.Thread(target=produce)
+    producer.start()
+    feed = nf.DeviceFeed(channel, dev)
+    got = []
+    try:
+        while True:
+            torch.cuda._sleep(1_000_000)
+            raw = feed.recv()
+            if raw is None:
+                break
+            got.append(raw)
+    finally:
+        channel.close()
+        producer.join(timeout=60)
+    torch.cuda.synchronize()
+    wrong = []
+    for i, (raw, pts) in enumerate(zip(got, sources)):
+        xyz, valid, _ = nf.pack_scan_native(pts, C)
+        if not (np.array_equal(raw.xyz.cpu().numpy(), xyz)
+                and np.array_equal(raw.valid.cpu().numpy(), valid)
+                and float(raw.stamp) == float(np.float32(0.1 * i))):
+            wrong.append(i)
+    result = {"scans": len(got), "wrong": wrong,
+              "pinned": bool(feed._bufs[0][0].is_pinned())}
+    assert not producer.is_alive()
+    assert len(got) == len(sources) and not wrong and result["pinned"], result
+    return result
+
+
+def streaming_phase(bench, dev):
+    """The live mode: the slice's scans with ``vlp16()`` as shipped (loop
+    closure on) through ``run.stream`` — what ``run.main --streaming``
+    runs: a producer thread sends each scan through the native channel,
+    the loop receives it into a pinned buffer, copies it to the card and
+    runs one ``slam_step``, and reads the fused pose on the host.  Latency
+    per scan from ``recv`` to that pose, against the sensor's 100 ms;
+    the fused trajectory must equal ``replay``'s on the same scans bit for
+    bit.  Counts zeroed just before the stream and read just after."""
+    from lego_loam_tpu_torch import run
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.match import cuda_knn
+    scans, gt, times = bench
+    cfg = vlp16()
+    n = len(scans)
+    ref = timed_replay(bench, cfg, dev, with_fused=True)
+    feed = feed_check(scans, cfg, dev)
+
+    D.reset_sync_count()
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    t0 = time.perf_counter()
+    state, outs, latency_ms, mapped = run.stream(scans, times, cfg, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    syncs = D.sync_count()
+    fused = outs["fused"].cpu().numpy()
+    _, ate_m = pose_errors(fused, gt)
+    attempted = (outs["loop_diag"][:, 0] > 0).cpu().numpy()
+    meta = state.mapping.meta
+    result = {
+        "phase": "streaming", "config": "vlp16() unchanged (loop closure on)",
+        "scans": n, "wall_s": wall, "scans_per_s": n / wall,
+        "replay_scans_per_s": ref["scans_per_s"],
+        "latency": run.latency_summary(latency_ms, mapped,
+                                       1e3 * cfg.laser.scan_period),
+        "latency_ms_closure_attempts": np.asarray(latency_ms)[
+            attempted].tolist(),
+        "host_syncs_per_scan": syncs / n,
+        "keyframes": int(meta.kf_count), "factors": int(meta.factor_count),
+        "ate": ate_m, "fused_equal_replay": bool(np.array_equal(
+            fused, ref["fused"])),
+        "max_fused_diff_replay": float(np.max(np.abs(fused - ref["fused"]))),
+        "launches": launches, "feed_check": feed}
+    emit(result)
+    assert result["fused_equal_replay"], result["max_fused_diff_replay"]
+    assert (result["keyframes"], result["factors"]) == (
+        ref["keyframes"], ref["factors"])
+    assert launches["label_ccl"] == n and launches["knn5"] > 0, launches
+    return launches
+
+
+def odometry_phase(bench, dev):
+    """``BASELINE.json`` config 3, odometry only (``pipeline.odometry_only``,
+    no mapping, so no K2) on the slice's scans: scans/s, ms a scan by stage,
+    ATE (the JAX package's ``ODOM_r05.json`` read 2.63 m on 200 scans, an
+    accuracy only)."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    base = vlp16()
+    cfg = base.replace(pipeline=dataclasses.replace(base.pipeline,
+                                                    odometry_only=True))
+    r = timed_replay(bench, cfg, dev)
+    emit({"phase": "odometry", "config": "vlp16(), odometry_only=True",
+          **{k: r[k] for k in ("scans", "wall_s", "scans_per_s",
+                               "ms_per_scan", "ms_per_scan_by_stage",
+                               "host_syncs_per_scan", "ate", "keyframes",
+                               "launches", "max_memory_allocated_bytes")}})
+    assert r["launches"]["knn5"] == 0, r["launches"]
+    assert r["launches"]["label_ccl"] == r["scans"], r["launches"]
+    assert np.isfinite(r["ate"]["rmse"]), r["ate"]
+    assert r["keyframes"] == 0
+    return {"label_ccl": r["launches"]["label_ccl"]}
+
+
+SESSIONS = (314, 200)        # benchmarks/multi_session.py: one lap, then 200
+SESSION_SEED = 3
+SESSION_GAP_S = 40.0
+SESSION_CHUNK = 30
+
+
+def session_trajectory(n1: int, n2: int):
+    """(gt (n1+n2, 6), times, pose_fn, t_off) of
+    ``benchmarks/multi_session.py::make_two_sessions``: one circle, session
+    2 retracing it after a ``SESSION_GAP_S`` gap in the stamps."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.io.synthetic import circle_trajectory
+    period = vlp16().laser.scan_period
+    gt1, t1, pose_fn = circle_trajectory(n1, radius=6.5, speed=1.3,
+                                         period=period)
+    t_off = n1 * period + SESSION_GAP_S
+    t2 = np.arange(n2) * period + t_off
+    gt2 = np.stack([pose_fn(t - t_off) for t in t2]).reshape(n2, 6)
+    return np.concatenate([gt1, gt2]), np.concatenate([t1, t2]), pose_fn, \
+        t_off
+
+
+def session_chunk(start: int, stop: int, n1: int, n2: int):
+    """Scans ``start .. stop-1`` of the two sessions, made by the calls
+    ``make_two_sessions(n1, n2, vlp16(), seed=SESSION_SEED)`` makes (the
+    world cleared along the whole lap; session 1's scan i seeded seed + i,
+    session 2's scan j seed + n1 + j), so worker processes can share the
+    sequence (``tests/test_torch_sessions.py`` holds it to the original)."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.io import synthetic
+    cfg = vlp16()
+    _, times, pose_fn, t_off = session_trajectory(n1, n2)
+    full = pose_fn(np.arange(0, 2 * np.pi * 6.5 / 1.3 + 0.1,
+                             cfg.laser.scan_period))
+    world = synthetic.default_world(SESSION_SEED, path_xy=full[:, 3:5])
+
+    def shifted(tt):
+        return pose_fn(tt - t_off)
+    return [synthetic.simulate_scan(pose_fn if i < n1 else shifted,
+                                    times[i], cfg, world, noise=0.01,
+                                    seed=SESSION_SEED + i)
+            for i in range(start, stop)]
+
+
+def multisession_phase(scans, dev):
+    """``BASELINE.json`` config 5, ``benchmarks/multi_session.py``: two
+    sessions over one world (314 + 200 scans, 40 s stamp gap, world seed
+    3), ``vlp16()`` as shipped.  Replayed whole, and split: session 1
+    through ``replay``, its state written and read by ``io/checkpoint.py``,
+    session 2 through ``replay_from`` the restored state.  The split must
+    equal the whole run bit for bit (the JAX package's
+    ``MULTISESSION_r05.json`` read 0.0: 102 keyframes, 13 loop factors, ATE
+    0.255 m)."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.io.checkpoint import load_state, save_state
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline.slam import (init_state, replay,
+                                                   replay_from)
+    cfg = vlp16()
+    n1 = SESSIONS[0]
+    gt, times, _, _ = session_trajectory(*SESSIONS)
+    gt = gt.astype(np.float32)
+    packed = pack_sequence(scans, times, cfg, device=dev)
+    whole = timed_replay((scans, gt, times), cfg, dev, with_fused=True,
+                         packed=packed)
+    x, v, t = packed
+    t0 = time.perf_counter()
+    s1, outs1 = replay(x[:n1], v[:n1], t[:n1], cfg, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session1.npz")
+        t1 = time.perf_counter()
+        save_state(path, s1)
+        restored = load_state(path, init_state(cfg, dev))
+        ckpt_s = time.perf_counter() - t1
+        ckpt_bytes = os.path.getsize(path)
+    del s1
+    state, outs2 = replay_from(restored, x[n1:], v[n1:], t[n1:], cfg,
+                               device=dev)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    del packed, x, v, t
+    split = torch.cat([outs1["fused"], outs2["fused"]]).cpu().numpy()
+    diff = float(np.max(np.abs(split - whole["fused"])))
+    fused = whole["fused"]
+    _, ate1 = pose_errors(fused[:n1 + 1], gt[:n1 + 1])
+    err, _ = pose_errors(fused, gt)
+    meta = state.mapping.meta
+    result = {
+        "phase": "multisession", "config": "vlp16() unchanged",
+        "sessions": list(SESSIONS), "stamp_gap_s": SESSION_GAP_S,
+        "world_seed": SESSION_SEED,
+        **{k: whole[k] for k in (
+            "scans", "wall_s", "scans_per_s", "ms_per_scan_by_stage",
+            "keyframes", "factors", "loop_factors", "ate", "err_at_scan_m",
+            "closure_attempts", "accepted", "resolves", "ms_per_resolve",
+            "kf_dropped", "factor_dropped", "map_sat", "launches",
+            "launches_by_shape", "max_memory_allocated_bytes")},
+        "ate_session1": ate1,
+        "ate_session2_rmse": float(np.sqrt(np.mean(err[n1:] ** 2))),
+        "split_seconds": split_s, "checkpoint_seconds": ckpt_s,
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_split_max_pose_diff": diff,
+        "split_counts": [int(meta.kf_count), int(meta.factor_count)]}
+    emit(result)
+    assert diff == 0.0, diff
+    assert result["split_counts"] == [whole["keyframes"], whole["factors"]]
+    assert whole["loop_factors"] >= 1, whole["loop_factors"]
+    assert whole["kf_dropped"] == whole["factor_dropped"] \
+        == whole["map_sat"] == 0
+    assert whole["launches"]["label_ccl"] == whole["scans"]
+    assert whole["launches"]["knn5"] > 0
+    return whole["launches"]
+
+
+# --------------------------------------------------------------------------
+# phase 11 (--long): Stevens scale, process scaling, traces, D-1's cost,
+# the HDL-64 drive on the CPU
+# --------------------------------------------------------------------------
+
+STEVENS_SCANS = 2000         # benchmarks/stevens_stress.py's default N
+STEVENS_PERIOD = 700         # one figure-eight (70 s), generated and tiled
+STEVENS_SEED = 77
+STEVENS_KF_CAP = 4096        # the script's KF_CAP for N <= 4000
+STEVENS_CHUNK = 25
+
+
+def stevens_chunk(start: int, stop: int):
+    """Scans ``start .. stop-1`` of ``make_sequence(STEVENS_PERIOD,
+    vlp16(), seed=STEVENS_SEED, noise=0.01, trajectory="figure8")``, made
+    by the calls ``make_sequence`` makes (its first scans are held to it,
+    as the drive's are)."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.io import synthetic
+    cfg = vlp16()
+    period = cfg.laser.scan_period
+    _, times, pose_fn = synthetic.figure_eight_trajectory(
+        STEVENS_PERIOD, scan_period=period)
+    # make_sequence clears the whole figure-eight (700 scans) of the world
+    full, _, _ = synthetic.figure_eight_trajectory(700, scan_period=period)
+    world = synthetic.default_world(STEVENS_SEED, path_xy=full[:, 3:5])
+    return [synthetic.simulate_scan(pose_fn, times[i], cfg, world,
+                                    noise=0.01, seed=STEVENS_SEED + i)
+            for i in range(start, stop)]
+
+
+def stevens_config():
+    """``vlp16()`` with the caps ``benchmarks/stevens_stress.py`` sets for
+    N <= 4000: 4096 keyframes, at least 1024 loop factors."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    cfg = vlp16()
+    return cfg.replace(mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=STEVENS_KF_CAP,
+        max_loop_factors=max(1024, cfg.mapping.max_loop_factors)))
+
+
+def stevens_phase(chunks, check, dev):
+    """``BASELINE.json`` config 2 at the size of
+    ``benchmarks/stevens_stress.py``'s default: the 700-scan figure-eight
+    (seed 77) tiled to 2000 scans (the vehicle retraces the same poses in
+    the same world, so lap k's scans are lap 1's; only the stamps
+    advance), through ``replay`` with the script's caps."""
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.io.synthetic import figure_eight_trajectory
+    cfg = stevens_config()
+    base = [scan for chunk in chunks for scan in chunk]
+    assert len(base) == STEVENS_PERIOD
+    ref_scans, ref_gt, _ = check
+    for k, (a, b) in enumerate(zip(ref_scans, base)):
+        assert np.array_equal(a, b, equal_nan=True), f"stevens scan {k}"
+    n = STEVENS_SCANS
+    period = cfg.laser.scan_period
+    gt1, _, _ = figure_eight_trajectory(STEVENS_PERIOD, scan_period=period)
+    assert np.array_equal(ref_gt, gt1[:len(ref_gt)].astype(np.float32))
+    gt = np.tile(gt1, (n // STEVENS_PERIOD + 1, 1))[:n].astype(np.float32)
+    times = (np.arange(n) * period).astype(np.float32)
+    xb, vb, _ = pack_sequence(base, times[:STEVENS_PERIOD], cfg, device=dev)
+    rows = torch.arange(n, device=dev) % STEVENS_PERIOD
+    packed = (xb[rows], vb[rows], torch.from_numpy(times).to(dev))
+    del xb, vb
+    r = timed_replay((None, gt, times), cfg, dev, packed=packed)
+    del packed
+    emit({"phase": "stevens",
+          "config": "vlp16(), max_keyframes 4096, max_loop_factors >= 1024",
+          "sequence": dict(scans=n, period=STEVENS_PERIOD, seed=STEVENS_SEED,
+                           trajectory="figure8", noise=0.01), **r})
+    assert r["kf_dropped"] == r["factor_dropped"] == r["map_sat"] == 0, r
+    assert r["loop_factors"] >= 1, r["loop_factors"]
+    assert np.isfinite(r["ate"]["rmse"]), r["ate"]
+    assert r["launches"]["label_ccl"] == n, r["launches"]
+    return r["launches"]
+
+
+SCALING_SCANS = 40
+
+
+def scaling_phase(dev):
+    """``benchmarks/scaling.py``'s question on the one card: the
+    data-parallel replay (``multihost --bench``, the workers' small config,
+    ``SCALING_SCANS`` scans a stream, a stream a shard) in 1 and in 2
+    ``gloo`` processes with one shard each, beside 1 process with 2 shards
+    (``replay_sharded``'s two host threads)."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for procs, local in ((1, 1), (2, 1), (1, 2), (1, 1)):
+            t0 = time.perf_counter()
+            z = multihost_run(procs, "gloo", dev,
+                              os.path.join(tmp, f"b{procs}{local}.npz"),
+                              local_devices=local, bench=True,
+                              n_scans=SCALING_SCANS)
+            runs.setdefault(f"processes_{procs}_shards_each_{local}", []) \
+                .append({"aggregate_scans_per_s": float(z["rate"]),
+                         "seconds_timed": float(z["seconds"]),
+                         "seconds_with_start_up":
+                             time.perf_counter() - t0})
+    one = statistics.median(
+        r["aggregate_scans_per_s"] for r in runs["processes_1_shards_each_1"])
+    emit({"phase": "scaling", "scans_per_stream": SCALING_SCANS,
+          "backend": "gloo", "runs": runs,
+          "two_processes_over_one": runs["processes_2_shards_each_1"][0][
+              "aggregate_scans_per_s"] / one,
+          "two_threads_over_one": runs["processes_1_shards_each_2"][0][
+              "aggregate_scans_per_s"] / one})
+
+
+@contextlib.contextmanager
+def old_index_add_sums():
+    """Put the parent's float ``index_add_`` sums back in place of
+    ``core/segsum.py`` in the three modules that sum, while the block runs
+    (measurement only: D-1's cost, the old path on the same inputs)."""
+    from lego_loam_tpu_torch.graph import posegraph, submap_grid
+    from lego_loam_tpu_torch.match import voxelhash
+
+    def plan(slot, num_slots, presorted=False):
+        return slot.to(torch.int64).clamp(max=num_slots), num_slots
+
+    def total(values, p):
+        slot, num = p
+        out = values.new_zeros((num + 1,) + tuple(values.shape[1:]))
+        return out.index_add_(0, slot, values)[:num]
+
+    saved = [(m, m.segments, m.segment_sum)
+             for m in (posegraph, submap_grid, voxelhash)]
+    for m, _, _ in saved:
+        m.segments, m.segment_sum = plan, total
+    try:
+        yield
+    finally:
+        for m, seg, tot in saved:
+            m.segments, m.segment_sum = seg, tot
+
+
+def d1_cost_phase(bench, lap, loop_meta, dev):
+    """What the order-fixed sums cost against the parent's ``index_add_``
+    on the same inputs, in turns (old, new, new, old): ms a scan on the
+    slice (loop off) and on the lap (loop on), and ms a re-solve on the
+    loop run's final graph."""
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.graph.posegraph import optimize_poses
+    slice_cfg = vlp16()
+    slice_cfg = slice_cfg.replace(mapping=dataclasses.replace(
+        slice_cfg.mapping, enable_loop_closure=False))
+    out = {}
+    for name, seq, cfg in (("slice", bench, slice_cfg),
+                           ("loop", lap, vlp16())):
+        runs = {"index_add_": [], "segsum": []}
+        for old in (True, False, False, True):
+            with (old_index_add_sums() if old else contextlib.nullcontext()):
+                r = timed_replay(seq, cfg, dev)
+            runs["index_add_" if old else "segsum"].append(r["ms_per_scan"])
+        out[name] = {k: {"ms_per_scan": v, "median": statistics.median(v)}
+                     for k, v in runs.items()}
+        out[name]["segsum_minus_index_add_ms_per_scan"] = (
+            out[name]["segsum"]["median"] - out[name]["index_add_"]["median"])
+    meta = loop_meta
+    solves = {"index_add_": [], "segsum": []}
+    for old in (True, False, False, True, True, False):
+        with (old_index_add_sums() if old else contextlib.nullcontext()):
+            optimize_poses(meta.kf_pose, meta.kf_count, meta.graph,
+                           gn_iters=3, pcg_iters=64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optimize_poses(meta.kf_pose, meta.kf_count, meta.graph,
+                           gn_iters=3, pcg_iters=64)
+            torch.cuda.synchronize()
+        solves["index_add_" if old else "segsum"].append(
+            1e3 * (time.perf_counter() - t0))
+    out["resolve"] = {k: {"ms": v, "median": statistics.median(v)}
+                      for k, v in solves.items()}
+    emit({"phase": "d1_cost", **out})
+
+
+NOISE_RUNS = ((1e-6, 0), (1e-6, 1), (1e-6, 2), (1e-5, 0), (1e-4, 0))
+
+
+def hdl64_noise_phase(drive, dev):
+    """How far the ``hdl64`` drive's ATE moves under Gaussian noise of
+    ``eps`` metres on every valid coordinate (seeded), on the card: the
+    spread rounding alone can explain, beside the gap to the JAX package's
+    0.338 m (ROADMAP Queue D-2)."""
+    from lego_loam_tpu_torch.core.config import hdl64
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline.slam import replay
+    scans, gt, times = drive
+    cfg = hdl64()
+    x, v, t = pack_sequence(scans, times, cfg, device=dev)
+    per_coord = v.repeat_interleave(3, dim=1)
+    gen = torch.Generator(device=dev)
+    runs = []
+    for eps, seed in NOISE_RUNS:
+        gen.manual_seed(seed)
+        noise = torch.randn(x.shape, device=dev, generator=gen) * eps
+        state, outs = replay(torch.where(per_coord, x + noise, x), v, t, cfg,
+                             device=dev)
+        _, ate_m = pose_errors(outs["fused"].cpu().numpy(), gt)
+        meta = state.mapping.meta
+        kf = int(meta.kf_count)
+        runs.append({"eps_m": eps, "seed": seed, "ate_rmse": ate_m["rmse"],
+                     "keyframes": kf,
+                     "loop_factors": int(meta.factor_count) - (kf - 1)})
+    emit({"phase": "hdl64_noise", "runs": runs})
+    assert all(np.isfinite(r["ate_rmse"]) for r in runs), runs
+
+
+def hdl64_cpu_phase(drive):
+    """The ``hdl64`` drive through ``replay`` with ``device="cpu"`` (the
+    plain versions of both kernels), on this machine's CPU cores: the ATE
+    that tells the card's float order from a fault of the port's (the JAX
+    package read 0.338 m, ``KITTI64_r05.json``; the card 0.371-0.373 m
+    before the sums were order-fixed).  Progress is printed every 30
+    scans."""
+    from lego_loam_tpu_torch.core.config import hdl64
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline.slam import init_state, replay_from
+    scans, gt, times = drive
+    cfg = hdl64()
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    state = init_state(cfg, cpu)
+    fused, t0 = [], time.perf_counter()
+    for k in range(0, len(scans), 30):
+        x, v, t = pack_sequence(scans[k:k + 30], times[k:k + 30], cfg,
+                                device=cpu)
+        state, outs = replay_from(state, x, v, t, cfg, device=cpu)
+        fused.append(outs["fused"].numpy())
+        emit({"phase": "hdl64_cpu_progress", "scans": k + len(x),
+              "seconds": time.perf_counter() - t0})
+    fused = np.concatenate(fused)
+    err, ate_m = pose_errors(fused, gt)
+    meta = state.mapping.meta
+    kf, factors = int(meta.kf_count), int(meta.factor_count)
+    emit({"phase": "hdl64_cpu", "device": "cpu", "torch_threads": threads,
+          "scans": len(fused), "seconds": time.perf_counter() - t0,
+          "keyframes": kf, "loop_factors": factors - (kf - 1), "ate": ate_m,
+          "err_at_scan_m": {k: float(err[k]) for k in (10, 164, 328)}})
+    assert np.isfinite(ate_m["rmse"]), ate_m
+
+
+def replay_from_packed(state, packed, n: int, cfg, dev):
+    """``replay_from`` of the first ``n`` packed scans, continuing
+    ``state``."""
     from lego_loam_tpu_torch.pipeline.slam import replay_from
     x, v, t = (a[:n] for a in packed)
+    return replay_from(state, x, v, t, cfg, device=dev)
+
+
+def profile_phase(path: str, run, n: int):
+    """Trace one call of ``run()`` (``n`` scans, or scan-steps, of the
+    ``path`` phase's run continued); device busy share = summed kernel time
+    / wall time of the window, as ``benchmarks/trace_summary.py`` reads a
+    trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        replay_from(state, x, v, t, cfg, device=dev)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side rows only: an operator's row repeats its kernels' time
@@ -1770,8 +2382,8 @@ def profile_phase(state, packed, n, cfg, dev):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "scans": n, "wall_ms_traced": wall_ms,
-          "device_busy_ms": busy_ms,
+    emit({"phase": "profile", "path": path, "scans": n,
+          "wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms,
           "device_launches": sum(r[2] for r in rows),
           "note": "tracing adds host overhead, so the idle share is higher "
@@ -1788,16 +2400,23 @@ def main() -> int:
                     help="scans of the main-path replay (at least 60)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="also trace N scans with torch.profiler")
+                    help="also trace N scans of slice, batched and sharded "
+                         "with torch.profiler")
+    ap.add_argument("--long", action="store_true",
+                    help="add the long phases: stevens, d1_cost, scaling, "
+                         "hdl64_noise, hdl64_cpu, and --profile 20 unless "
+                         "given")
     args = ap.parse_args()
     if args.scans < 60:
         ap.error("--scans must be at least 60")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device present", file=sys.stderr)
         return 2
+    if args.long and not args.profile:
+        args.profile = 20
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from lego_loam_tpu_torch import kernels
+    from lego_loam_tpu_torch import hostlib, kernels
     from lego_loam_tpu_torch.core.config import hdl64, vlp16
     from lego_loam_tpu_torch.io.synthetic import make_sequence
 
@@ -1832,13 +2451,30 @@ def main() -> int:
         drive_jobs = [pool.submit(drive_chunk, k,
                                   min(k + DRIVE_CHUNK, DRIVE_SCANS))
                       for k in range(0, DRIVE_SCANS, DRIVE_CHUNK)]
+        n_sessions = sum(SESSIONS)
+        session_jobs = [pool.submit(session_chunk, k,
+                                    min(k + SESSION_CHUNK, n_sessions),
+                                    *SESSIONS)
+                        for k in range(0, n_sessions, SESSION_CHUNK)]
+        if args.long:
+            jobs["stevens_check"] = pool.submit(
+                make_sequence, DRIVE_CHECKED, vlp16(), seed=STEVENS_SEED,
+                noise=0.01, trajectory="figure8")
+            stevens_jobs = [pool.submit(stevens_chunk, k,
+                                        min(k + STEVENS_CHUNK,
+                                            STEVENS_PERIOD))
+                            for k in range(0, STEVENS_PERIOD, STEVENS_CHUNK)]
 
         kernels.build(force=True, verbose=True)
         kernels.lib()
+        t0 = time.time()
+        feeder = hostlib.build()
         emit({"phase": "build", "library": os.path.relpath(
                   os.path.join(kernels.build_dir(), "libkernels.so")),
               "seconds": kernels.build_seconds,
               "sources": list(kernels._SOURCES),
+              "host_library": os.path.relpath(feeder),
+              "host_library_seconds": time.time() - t0,
               "resources": kernel_resources(
                   "knn5_kernel", "label_cluster_kernel", "label_grid_kernel",
                   "noop_kernel")})
@@ -1848,6 +2484,10 @@ def main() -> int:
         data["drive"] = drive_sequence([j.result() for j in drive_jobs],
                                        data.pop("drive_check"))
         data["batch"] = [j.result() for j in batch_jobs]
+        data["sessions"] = [scan for j in session_jobs
+                            for scan in j.result()]
+        if args.long:
+            data["stevens"] = [j.result() for j in stevens_jobs]
     emit({"phase": "data", "seconds": time.time() - t_start,
           "workers": workers,
           "sequences": {"bench": dict(scans=args.scans, seed=args.seed,
@@ -1860,18 +2500,29 @@ def main() -> int:
                                       checked_against_make_sequence=
                                       DRIVE_CHECKED),
                         "batch": [dict(scans=n_batch, seed=seed, noise=0.01,
-                                       speed=1.2) for seed in BATCH_SEEDS]}})
+                                       speed=1.2) for seed in BATCH_SEEDS],
+                        "sessions": dict(scans=list(SESSIONS),
+                                         seed=SESSION_SEED,
+                                         gap_s=SESSION_GAP_S),
+                        **({"stevens": dict(scans=STEVENS_PERIOD,
+                                            seed=STEVENS_SEED,
+                                            trajectory="figure8")}
+                           if args.long else {})}})
 
     floor = launch_floor_phase()
     knn_entry["launch_floor_ms"] = floor
     scans, gt, times = bench = data.pop("bench")
     entries = [label_phase(scans, cfg, dev, floor), knn_entry]
     parity_phase(dev)
-    launches, state, packed = slice_phase(scans, gt, times, cfg, dev)
+    paths = {}
+    paths["slice"], state, packed = slice_phase(scans, gt, times, cfg, dev)
     if args.profile:
-        profile_phase(state, packed, args.profile, cfg, dev)
+        p = args.profile
+        profile_phase("slice", lambda: replay_from_packed(
+            state, packed, p, cfg, dev), p)
     del state, packed
-    loop_launches, state = loop_phase(data.pop("lap"), dev)
+    lap = data.pop("lap")
+    paths["loop"], state = loop_phase(lap, dev)
     resolve_phase(state, dev)
     loop_meta = state.mapping.meta
     del state
@@ -1879,26 +2530,36 @@ def main() -> int:
     small_lap = data.pop("small_lap")
     loop_parity_phase(small_lap, dev)
     cli_phase(bench, dev)
-    drive = data.pop("drive")
-    hdl64_launches = hdl64_phase(drive, dev)
+    paths["streaming"] = streaming_phase(bench, dev)
+    paths["odometry"] = odometry_phase(bench, dev)
+    paths["multisession"] = multisession_phase(data.pop("sessions"), dev)
     torch.cuda.empty_cache()
-    banded_launches = banded_phase(drive, dev)
-    del drive
+    drive = data.pop("drive")
+    paths["hdl64"] = hdl64_phase(drive, dev)
+    torch.cuda.empty_cache()
+    paths["banded"] = banded_phase(drive, dev)
     torch.cuda.empty_cache()
     streams = [tuple(a[:n_batch] for a in bench)] + data.pop("batch")
-    batched_launches, batched_outs = batched_phase(streams, dev)
-    sharded_launches = sharded_phase(streams, batched_outs, loop_meta,
-                                     small_lap, dev)
-    del batched_outs, loop_meta
+    paths["batched"], batched_outs = batched_phase(streams, dev,
+                                                   args.profile)
+    paths["sharded"] = sharded_phase(streams, batched_outs, loop_meta,
+                                     small_lap, dev, args.profile)
+    del batched_outs
     torch.cuda.empty_cache()
     multihost_phase(dev)
+    if args.long:
+        paths["stevens"] = stevens_phase(data.pop("stevens"),
+                                         data.pop("stevens_check"), dev)
+        torch.cuda.empty_cache()
+        d1_cost_phase(bench, lap, loop_meta, dev)
+        scaling_phase(dev)
+        hdl64_noise_phase(drive, dev)
+        hdl64_cpu_phase(drive)
+    del drive, lap, loop_meta
     for e in entries:
-        by_path = {"slice": launches[e["name"]],
-                   "loop": loop_launches[e["name"]],
-                   "hdl64": hdl64_launches[e["name"]],
-                   "banded": banded_launches[e["name"]],
-                   "batched": batched_launches[e["name"]],
-                   "sharded": sharded_launches[e["name"]]}
+        # odometry-only runs no mapping, so no 5-NN search
+        by_path = {path: counts[e["name"]] for path, counts in paths.items()
+                   if e["name"] in counts}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         for path, count in by_path.items():

@@ -116,6 +116,14 @@ def replay_sharded(xyz: Tensor, valid: Tensor, times: Tensor,
     if n == 1:
         work(0)
     else:
+        # PyTorch loads its CUDA linear-algebra library at the first
+        # torch.linalg call on a card, and two threads making that first
+        # call together fail ("lazy wrapper should be called at most once"):
+        # load it here, in one thread, before the shards start
+        for dev in {d for d in mesh.devices if d.type == "cuda"}:
+            with _on(dev):
+                torch.linalg.solve_ex(torch.eye(1, device=dev),
+                                      torch.ones((1, 1), device=dev))
         threads = [threading.Thread(target=work, args=(k,), daemon=True)
                    for k in range(n)]
         for t in threads:

@@ -20,8 +20,10 @@ process ends with the same bits (a collective's result is the same on every
 rank), so all of them take the same number of PCG iterations: one counted
 host read per iteration, as in the single-device solve.
 
-The partial sums differ from the single-device ``index_add_`` order by
-rounding only; ``tests/test_torch_distributed.py`` states the tolerances.
+Within a shard the sums run in the order ``core/segsum.py`` fixes, so a
+sharded solve repeats bit for bit; its partial sums differ from the
+single-device order by rounding only, and ``tests/test_torch_distributed.py``
+states the tolerances.
 """
 
 from __future__ import annotations

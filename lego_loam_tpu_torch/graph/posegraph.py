@@ -11,7 +11,8 @@ The solver is the JAX package's: batched Gauss-Newton over all keyframe
 poses at once.  Per-factor 6-vector residuals and 6×6 Jacobian blocks come
 from one vmapped forward-mode derivative (``torch.func``); the sparse normal
 equations H δ = −g are solved matrix-free with preconditioned conjugate
-gradient (H·x = two gathers, four batched 6×6 products, two scatter-adds).
+gradient (H·x = two gathers, four batched 6×6 products, one sum into the
+nodes).
 The preconditioner is the EXACT inverse of the block-tridiagonal chain part
 of H, factored by parallel block cyclic reduction (:func:`_cr_factor`,
 log₂K levels of batched 6×6 products): H differs from the chain only by
@@ -28,7 +29,9 @@ the inverse only preconditions, so its rounding moves the PCG iteration
 count, not the solution.  The PCG's early exit on the relative residual is
 a Python loop with one counted host read per iteration
 (``core/device.py::host_bool``): at most ``pcg_iters`` + 1 per Gauss-Newton
-step.
+step.  Every sum of factor quantities into nodes runs in an order fixed by
+the graph (``core/segsum.py``, one plan a solve), so a solve on the card
+repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from ..core import se3
 from ..core.device import DeviceLike, host_bool, resolve_device
+from ..core.segsum import Segments, segment_sum, segments
 from ..core.types import Container
 
 Tensor = torch.Tensor
@@ -158,43 +162,61 @@ def _bmm_tn(a: Tensor, b: Tensor) -> Tensor:
     return a.transpose(-1, -2) @ b
 
 
+def _incidence(gi: Tensor, gj: Tensor, K: int) -> Segments:
+    """The sum plan of a factor quantity into its two nodes: rows
+    ``[by i; by j]`` into K slots (fixed for a whole solve)."""
+    return segments(torch.cat([gi, gj]), K)
+
+
+def _node_sum(vi: Tensor, vj: Tensor, plan: Segments) -> Tensor:
+    """Σ over factors of ``vi`` into node i and ``vj`` into node j, in the
+    order fixed by ``plan`` (:func:`_incidence`)."""
+    return segment_sum(torch.cat([vi, vj]), plan)
+
+
 def _hvp(x: Tensor, gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
-         K: int) -> Tensor:
+         plan: Segments) -> Tensor:
     """Σ_f [Ai Aj]ᵀ[Ai Aj]·x over the given factors — matrix-free (the
-    prior is added by the caller, once)."""
+    prior is added by the caller, once).  ``plan``: :func:`_incidence` of
+    (gi, gj)."""
     u = _bmv(Ai, x[gi]) + _bmv(Aj, x[gj])
-    y = torch.zeros((K, 6), dtype=x.dtype, device=x.device)
-    y.index_add_(0, gi, _bmv_t(Ai, u))
-    y.index_add_(0, gj, _bmv_t(Aj, u))
-    return y
+    return _node_sum(_bmv_t(Ai, u), _bmv_t(Aj, u), plan)
 
 
 def _block_diag(gi: Tensor, gj: Tensor, Ai: Tensor, Aj: Tensor,
-                K: int) -> Tensor:
-    """The K diagonal 6×6 blocks of Σ_f [Ai Aj]ᵀ[Ai Aj] (no prior)."""
-    D = torch.zeros((K, 6, 6), dtype=Ai.dtype, device=Ai.device)
-    D.index_add_(0, gi, _bmm_tn(Ai, Ai))
-    D.index_add_(0, gj, _bmm_tn(Aj, Aj))
-    return D
+                K: int, plan: Optional[Segments] = None) -> Tensor:
+    """The K diagonal 6×6 blocks of Σ_f [Ai Aj]ᵀ[Ai Aj] (no prior).
+    ``plan``: :func:`_incidence` of (gi, gj, K), made here when not given."""
+    if plan is None:
+        plan = _incidence(gi, gj, K)
+    return _node_sum(_bmm_tn(Ai, Ai), _bmm_tn(Aj, Aj), plan)
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _chain_subdiag(g: FactorGraph, Ai: Tensor, Aj: Tensor, K: int) -> Tensor:
+def _chain_incidence(g: FactorGraph, K: int) -> Segments:
+    """The sum plan of :func:`_chain_subdiag`: chain factors into the later
+    node, every other factor into the dropped slot K."""
+    up = g.j == g.i + 1          # factor (k−1 → k): H[j,i] += Ajᵀ Ai
+    dn = g.i == g.j + 1          # factor (k → k−1): H[i,j] += Aiᵀ Aj
+    return segments(torch.cat([torch.where(up, g.j, K),
+                               torch.where(dn, g.i, K)]), K)
+
+
+def _chain_subdiag(g: FactorGraph, Ai: Tensor, Aj: Tensor, K: int,
+                   plan: Optional[Segments] = None) -> Tensor:
     """Sub-diagonal blocks of H restricted to chain factors:
     ``A[k] = H[k, k−1]`` summed over factors with ``|i−j| == 1``.
 
     Loop factors (|i−j| > 1) stay OUT — they are the low-rank part the PCG
     iterations absorb; invalid factors contribute zero blocks (their
-    Jacobians are already masked in :func:`_factor_blocks`)."""
-    up = g.j == g.i + 1          # factor (k−1 → k): H[j,i] += Ajᵀ Ai
-    dn = g.i == g.j + 1          # factor (k → k−1): H[i,j] += Aiᵀ Aj
-    A = torch.zeros((K + 1, 6, 6), dtype=Ai.dtype, device=Ai.device)
-    A.index_add_(0, torch.where(up, g.j, K).to(torch.int64), _bmm_tn(Aj, Ai))
-    A.index_add_(0, torch.where(dn, g.i, K).to(torch.int64), _bmm_tn(Ai, Aj))
-    return A[:K]
+    Jacobians are already masked in :func:`_factor_blocks`).  ``plan``:
+    :func:`_chain_incidence` of (g, K), made here when not given."""
+    if plan is None:
+        plan = _chain_incidence(g, K)
+    return _node_sum(_bmm_tn(Aj, Ai), _bmm_tn(Ai, Aj), plan)
 
 
 def _inv6(B: Tensor) -> Tensor:
@@ -326,18 +348,18 @@ def _gn_solve(poses: Tensor, node_count: Tensor, g: FactorGraph, shards,
     prior_w2 = g.prior_weight ** 2
     prior_w = torch.sqrt(prior_w2)
     eye = torch.eye(6, dtype=poses.dtype, device=home)
+    # the incidence is fixed for the whole solve: one sum plan a shard
+    plans = [(_incidence(gi, gj, K), _chain_incidence(local, K))
+             for _, local, gi, gj in shards]
     iters = []
     for _ in range(gn_iters):
         blocks, grads, diags, subs = [], [], [], []
-        for dev, local, gi, gj in shards:
+        for (dev, local, gi, gj), (nodes, chain) in zip(shards, plans):
             r, Ai, Aj = _factor_blocks(poses.to(dev), local, gi, gj)
             blocks.append((Ai, Aj))
-            grad = torch.zeros((K, 6), dtype=poses.dtype, device=dev)
-            grad.index_add_(0, gi, _bmv_t(Ai, r))
-            grad.index_add_(0, gj, _bmv_t(Aj, r))
-            grads.append(grad)
-            diags.append(_block_diag(gi, gj, Ai, Aj, K))
-            subs.append(_chain_subdiag(local, Ai, Aj, K))
+            grads.append(_node_sum(_bmv_t(Ai, r), _bmv_t(Aj, r), nodes))
+            diags.append(_block_diag(gi, gj, Ai, Aj, K, nodes))
+            subs.append(_chain_subdiag(local, Ai, Aj, K, chain))
         grad = reduce(grads)
         grad[0] += prior_w * ((poses[0] - g.prior) * prior_w)
         D = reduce(diags)
@@ -346,8 +368,9 @@ def _gn_solve(poses: Tensor, node_count: Tensor, g: FactorGraph, shards,
                                      node_count, K)
 
         def matvec(x):
-            y = reduce([_hvp(x.to(dev), gi, gj, Ai, Aj, K)
-                        for (dev, _, gi, gj), (Ai, Aj) in zip(shards, blocks)])
+            y = reduce([_hvp(x.to(dev), gi, gj, Ai, Aj, nodes)
+                        for (dev, _, gi, gj), (Ai, Aj), (nodes, _c)
+                        in zip(shards, blocks, plans)])
             y[0] += prior_w2 * x[0]
             return (y + 1e-8 * x) * alive
 

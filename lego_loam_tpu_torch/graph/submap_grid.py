@@ -42,9 +42,9 @@ Port notes:
   package's sequential CPU scatter writes surf blocks before outlier blocks,
   so there an outlier point of an OLDER keyframe can overwrite the tag a
   newer keyframe's surf point left; the tests count those slots.)
-* The coordinate sums are float scatter-adds (atomics on the card), so the
-  sums differ from run to run in the last bits; counts are sums of ones and
-  exact.
+* The coordinate sums and counts are summed in an order fixed by the input
+  (``core/segsum.py``), not with float atomics, so a card run repeats bit for
+  bit; on the CPU they equal a sequential scatter-add's.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ import torch
 from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, resolve_device
+from ..core.segsum import segment_sum, segments
 from ..core.types import Container
 from ..match.voxelhash import recip32
 from ..solve.scan2map import MapCloud
@@ -112,10 +113,11 @@ def _scatter_add(grid_sum: Tensor, grid_cnt: Tensor, grid_tag: Tensor,
     n = grid_sum.shape[0]
     dev = grid_sum.device
     w = valid.to(grid_sum.dtype)
-    pad3 = torch.zeros((1, 3), dtype=grid_sum.dtype, device=dev)
-    new_sum = torch.cat([grid_sum, pad3]).index_add_(
-        0, slot, torch.where(valid[:, None], xyz, 0.0))[:n]
-    new_cnt = torch.cat([grid_cnt, pad3[0, :1]]).index_add_(0, slot, w)[:n]
+    # each slot's old value heads its run, so a run sums old + p1 + p2 + …
+    seg = segments(torch.cat([torch.arange(n, device=dev), slot]), n)
+    new_sum = segment_sum(torch.cat(
+        [grid_sum, torch.where(valid[:, None], xyz, 0.0)]), seg)
+    new_cnt = segment_sum(torch.cat([grid_cnt, w]), seg)
     tags = torch.broadcast_to(tag.to(torch.int32), slot.shape)
     new_tag = torch.cat([grid_tag, grid_tag.new_full((1,), -1)])
     new_tag = new_tag.scatter_reduce_(0, slot, tags, "amax",

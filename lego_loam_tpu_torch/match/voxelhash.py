@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.segsum import segment_sum, segments
+
 Tensor = torch.Tensor
 
 _OFFSET = 1 << 15          # voxel coords shifted to non-negative
@@ -85,10 +87,12 @@ def _downsample_core(xyz: Tensor, payload: Tensor, valid: Tensor,
     vals = torch.cat([s[..., 3:], torch.ones_like(w[..., None])], -1)
     vals = vals * w[..., None]                                 # (B,N,4+D)
     C = 4 + D
+    # seg is non-decreasing along each sorted row (invalid points sort
+    # last), so the flat slots are runs: summed in place, in sorted order
     flat_idx = (seg + torch.arange(B, device=dev)[:, None]
                 * (capacity + 1)).reshape(-1)
-    sums = torch.zeros((B * (capacity + 1), C), dtype=xyz.dtype, device=dev)
-    sums.index_add_(0, flat_idx, vals.reshape(-1, C))
+    sums = segment_sum(vals.reshape(-1, C),
+                       segments(flat_idx, B * (capacity + 1), presorted=True))
     sums = sums.reshape(B, capacity + 1, C)[:, :capacity]
     cnts = sums[..., -1]
     out_valid = (torch.arange(capacity, device=dev)[None, :]

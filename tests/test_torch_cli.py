@@ -2,7 +2,8 @@
 loader copy (``core/params.py``), the 2-D occupancy grid
 (``map2d/grid.py``), the global map (``graph/keyframes.py``), checkpoints
 (``io/checkpoint.py``), the artifact writers (``eval/artifacts.py``) — and
-``run.main`` itself on the CPU, on a loop-closing lap.
+``run.main`` itself on the CPU, on a loop-closing lap, and its ``.bag``
+and ``--streaming`` modes against its ``.npz`` run.
 
 Tolerances, stated at each assert: config fields, occupancy counts, masks,
 file bytes and checkpoint leaves exact; world-frame points 1e-4 (the pose
@@ -28,6 +29,7 @@ from lego_loam_tpu_torch.eval import artifacts as tart
 from lego_loam_tpu_torch.graph import keyframes as tkf
 from lego_loam_tpu_torch.io import checkpoint as tckpt
 from lego_loam_tpu_torch.io.npz_io import pack_sequence, save_sequence
+from lego_loam_tpu_torch.io.rosbag import write_bag
 from lego_loam_tpu_torch.io.synthetic import make_sequence
 from lego_loam_tpu_torch.map2d import grid as tgrid2d
 from lego_loam_tpu_torch.pipeline import mapping as tmap
@@ -290,13 +292,55 @@ def test_run_main_replays_a_loop_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert fused.shape == (60, 8) and np.isfinite(fused).all()
 
 
-@pytest.mark.parametrize("argv", [["--streaming", "--synthetic", "3"],
-                                  ["--input", "seq.bag"]])
-def test_run_main_refuses_what_is_not_ported(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        trun.main(argv + ["--device", "cpu"])
-    assert e.value.code != 0
-    assert "Queue A-5" in capsys.readouterr().err
+@pytest.fixture(scope="module")
+def npz_run(tmp_path_factory):
+    """``run.main`` on an ``.npz`` of 15 scans (config: TCFG in place of
+    ``vlp16()``), the reference the other input modes are held to."""
+    tmp = tmp_path_factory.mktemp("modes")
+    scans, gt, times = make_sequence(15, TCFG, seed=4, noise=0.01)
+    save_sequence(str(tmp / "seq.npz"), scans, gt, times)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trun, "vlp16", lambda: TCFG)
+        assert trun.main(["--input", str(tmp / "seq.npz"), "--output",
+                          str(tmp / "npz"), "--device", "cpu"]) == 0
+    return tmp, scans, times
+
+
+@pytest.mark.parametrize("argv", [["--streaming"], ["--input", "seq.bag"]])
+def test_run_main_refuses_what_is_not_ported(argv, npz_run, monkeypatch):
+    """Named for what it held before the two modes were ported: the CLI
+    refused ``--streaming`` and ``.bag`` input.  Both now run, and each
+    gives the ``.npz`` run's keyframes, factors, keyframe poses, global map
+    and fused trajectory bit for bit (the bag's stamps are taken relative
+    to its first, which the synthetic sequence's already are)."""
+    tmp, scans, times = npz_run
+    if argv[0] == "--streaming":
+        out = tmp / "streaming"
+        argv = ["--input", str(tmp / "seq.npz"), "--streaming",
+                "--publish-every", "1"]
+    else:
+        out = tmp / "bag"
+        bag = str(tmp / "seq.bag")
+        write_bag(bag, scans, [float(t) for t in times],
+                  topic="/lidar_points")
+        argv = ["--input", bag, "--topic", "/lidar_points"]
+    monkeypatch.setattr(trun, "vlp16", lambda: TCFG)
+    assert trun.main(argv + ["--output", str(out), "--device", "cpu"]) == 0
+    ref = tmp / "npz"
+    got_m = json.loads((out / "metrics.json").read_text())
+    ref_m = json.loads((ref / "metrics.json").read_text())
+    for key in ("n_scans", "keyframes", "factors", "loop_factors"):
+        assert got_m[key] == ref_m[key], key
+    for name in ("keyframe_poses.npy", "global_map.npy"):
+        np.testing.assert_array_equal(np.load(out / name),
+                                      np.load(ref / name), err_msg=name)
+    for name in ("trajectory_fused.tum", "trajectory_odom.tum"):
+        assert (out / name).read_text() == (ref / name).read_text(), name
+    if "--streaming" in argv:
+        assert got_m["latency"]["p50_ms"] > 0
+        assert (out / "keyframe_poses_live.npy").is_file()
+    else:
+        assert "read_bag" in got_m["stages"]
 
 
 def test_run_main_needs_a_card_unless_told(tmp_path):

@@ -18,6 +18,7 @@ layout, goes through ``convert.py`` into the port and back unchanged.
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,11 +30,13 @@ from lego_loam_tpu.frontend import segmentation as jseg
 from lego_loam_tpu.io.npz_io import pack_raw_scan as jpack
 from lego_loam_tpu.io.synthetic import make_sequence
 from lego_loam_tpu.pipeline import slam as jslam
+from lego_loam_tpu.solve import odometry as jsolve
 from lego_loam_tpu_torch import convert
 from lego_loam_tpu_torch.core import config as tconfig
 from lego_loam_tpu_torch.frontend import features as tfeat
 from lego_loam_tpu_torch.frontend import projection as tproj
 from lego_loam_tpu_torch.frontend import segmentation as tseg
+from lego_loam_tpu_torch.solve import odometry as tsolve
 from torch_port_util import tnp, to_np, to_torch
 
 # the kitti64_drive sequence (benchmarks/kitti64_drive.py:29-31)
@@ -57,16 +60,20 @@ CONFIGS = {"full": (jconfig.hdl64(), tconfig.hdl64()),
 @pytest.fixture(scope="module")
 def stages():
     """JAX side, scan 1 of the drive: the packed scan, its image, its
-    segmented cloud and the features of both layouts."""
+    segmented cloud and the features of both layouts; and the full-layout
+    features of scan 0, the cloud scan 1's odometry matches against."""
     jc = CONFIGS["full"][0]
     assert jc.laser.image_size == (64, 2083)
     scans, _, times = make_sequence(2, jc, **DRIVE)
-    raw = jpack(scans[1], float(times[1]), jc.pipeline.max_points)
-    img = jproj.project_scan(raw, jc)
-    proj = jseg.segment_cloud(img, raw.stamp, jc)
-    feats = {k: jfeat.extract_features(proj.segmented, c[0])
+    raws = [jpack(scans[k], float(times[k]), jc.pipeline.max_points)
+            for k in range(2)]
+    imgs = [jproj.project_scan(raw, jc) for raw in raws]
+    projs = [jseg.segment_cloud(img, raw.stamp, jc)
+             for img, raw in zip(imgs, raws)]
+    feats = {k: jfeat.extract_features(projs[1].segmented, c[0])
              for k, c in CONFIGS.items()}
-    return raw, img, proj, feats
+    feats["previous"] = jfeat.extract_features(projs[0].segmented, jc)
+    return raws[1], imgs[1], projs[1], feats
 
 
 def test_project_scan_at_hdl64(stages):
@@ -121,6 +128,27 @@ def test_extract_features_at_hdl64(stages, layout):
             moved = (np.any(tnp(g.xyz) != r.xyz, axis=-1)
                      | (tnp(g.rel_time) != r.rel_time))
             assert moved.sum() <= MOVED_PICKS, (name, np.nonzero(moved))
+
+
+def test_two_step_odometry_at_hdl64(stages):
+    """Scan 1 of the drive against scan 0 at ``hdl64()`` shapes, both
+    sides on the JAX package's features: θ within ``test_torch_odometry``'s
+    1e-4 rad / 1e-3 m (the full-geometry step of the HDL-64 gap,
+    ``ROADMAP.md`` Queue D)."""
+    _, _, _, feats = stages
+    jc, tc = CONFIGS["full"]
+    cur, prev = feats["full"], feats["previous"]
+    ref = np.asarray(jsolve.two_step_odometry(
+        jnp.zeros((6,), jnp.float32), cur.sharp, cur.flat, prev.less_sharp,
+        prev.less_flat, jc))
+    got = tsolve.two_step_odometry(
+        torch.zeros((6,)), to_torch("FeatureCloud", cur.sharp),
+        to_torch("FeatureCloud", cur.flat),
+        to_torch("FeatureCloud", prev.less_sharp),
+        to_torch("FeatureCloud", prev.less_flat), tc)
+    assert np.abs(ref[3:]).max() > 0.05                     # it moved
+    np.testing.assert_allclose(tnp(got)[:3], ref[:3], atol=1e-4)
+    np.testing.assert_allclose(tnp(got)[3:], ref[3:], atol=1e-3)
 
 
 @pytest.mark.parametrize("layout", ["full", "banded"])
