@@ -59,19 +59,26 @@ processes from the start, beside the kernel phases.  It
    the one card (two host threads) over the first 60 scans of those
    streams against the batched run, K2 from two threads on two CUDA
    streams against single calls, ``optimize_poses_sharded`` on the loop
-   run's final graph on meshes of 1 and 2 shards, and ``replay(mesh=…)`` on
-   the small lap with a re-solve at every closure, each re-solve held to
-   ``optimize_poses`` on its own input graph, ``multihost``: the
-   ``torch.distributed`` worker (``distributed/multihost.py``) in 2
-   processes over ``gloo`` on the card and in 1 process over ``nccl``, each
-   held to the single-device solve and to each stream's own replay, every
-   partial sum counted through the backend's ``all_reduce``,
+   run's final graph on meshes of 1 and 2 shards, ``replay(mesh=…)`` on
+   the small lap over 16 shards with a re-solve at every closure, each
+   re-solve held to ``optimize_poses`` on its own input graph and the
+   keyframe blocks, row-sharded over the mesh, reassembled bit-equal to the
+   run without a mesh, and ``replay(mesh=…)`` of the ``loop`` lap over 4
+   shards (every card in turn, or the one card 4 times) bit-equal to the
+   ``loop`` run in every output and state field, each shard holding exactly
+   its rows, ``multihost``: the ``torch.distributed`` worker
+   (``distributed/multihost.py``) in 2 processes over ``gloo`` on the card
+   and in 1 process over ``nccl``, each held to the single-device solve, to
+   each stream's own replay, and, for its ``replay`` over the global mesh
+   (a keyframe row on every shard), to a one-process replay bit for bit,
+   every partial sum counted through the backend's ``all_reduce``,
 10. with ``--profile N``, traces N more scans (scan-steps) of ``slice``,
    ``batched`` and ``sharded`` with ``torch.profiler`` and prints the
    device's busy share and the kernels that take most of it; ``--long``
    also runs (and sets ``--profile 20`` unless given) ``stevens``
    (``BASELINE.json`` config 2 at ``benchmarks/stevens_stress.py``'s
-   default: the figure-eight tiled to 2000 scans), ``d1_cost`` (the
+   default: the figure-eight tiled to 2000 scans; then again over a mesh of
+   4 shards, held to the first run's counts and ATE), ``d1_cost`` (the
    order-fixed sums against the parent's ``index_add_``, in turns),
    ``scaling`` (``multihost --bench`` in 1 and 2 processes beside two
    threads), ``hdl64_noise`` (the ``hdl64`` drive's ATE under noise of 1
@@ -1070,7 +1077,7 @@ def loop_phase(lap, dev):
     assert shapes[icp_shape] == icp_iters + with_candidate >= 2, (
         shapes, icp_iters, with_candidate)
     assert sum(shapes.values()) == launches["knn5"]
-    return launches, state
+    return launches, state, outs, result
 
 
 def resolve_phase(state, dev):
@@ -1130,20 +1137,22 @@ def resolve_phase(state, dev):
     assert after <= before * (1 + 1e-6), (before, after)
 
 
+def tree_differences(x, y, path: str = "") -> list:
+    """The leaves (dotted paths) in which two nested dicts of NumPy arrays
+    differ, bit for bit (NaN equal to NaN)."""
+    if isinstance(y, dict):
+        return [d for k in y for d in tree_differences(x[k], y[k],
+                                                       f"{path}.{k}")]
+    return [] if np.array_equal(x, y, equal_nan=True) else [path]
+
+
 def state_differences(a, b) -> list:
     """The fields (dotted paths) in which two port states differ, bit for
-    bit (NaN equal to NaN)."""
+    bit (NaN equal to NaN); row-sharded keyframe blocks are compared
+    whole."""
     from lego_loam_tpu_torch import convert
-    out = []
-
-    def walk(x, y, path):
-        if isinstance(y, dict):
-            for k in y:
-                walk(x[k], y[k], f"{path}.{k}")
-        elif not np.array_equal(x, y, equal_nan=True):
-            out.append(path)
-    walk(convert.to_numpy_tree(a), convert.to_numpy_tree(b), "")
-    return out
+    return tree_differences(convert.to_numpy_tree(a),
+                            convert.to_numpy_tree(b))
 
 
 def loop_parity_phase(small_lap, dev):
@@ -1333,12 +1342,13 @@ def drive_sequence(chunks, check):
 
 
 def timed_replay(seq, cfg, dev, with_fused: bool = False,
-                 packed=None) -> dict:
+                 packed=None, mesh=None) -> dict:
     """``replay`` of a whole sequence on the card after a warm-up on its
     first 10 scans; every count zeroed just before the run and read just
     after; wall time ends in ``torch.cuda.synchronize()``.  ``with_fused``:
     the fused poses too, under ``fused``; ``packed``: the scans already
-    packed on the card (``seq``'s scans are then not read)."""
+    packed on the card (``seq``'s scans are then not read); ``mesh``: the
+    replay's (the keyframe blocks row-sharded over it)."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.frontend import cuda_label
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
@@ -1350,7 +1360,7 @@ def timed_replay(seq, cfg, dev, with_fused: bool = False,
     scans, gt, times = seq
     x, v, t = packed or pack_sequence(scans, times, cfg, device=dev)
     n = x.shape[0]
-    replay(x[:10], v[:10], t[:10], cfg, device=dev)         # warm-up
+    replay(x[:10], v[:10], t[:10], cfg, device=dev, mesh=mesh)   # warm-up
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1363,7 +1373,7 @@ def timed_replay(seq, cfg, dev, with_fused: bool = False,
     mapping.pcg_iteration_count = 0
     with launch_shapes() as shapes:
         t0 = time.perf_counter()
-        state, outs = replay(x, v, t, cfg, device=dev)
+        state, outs = replay(x, v, t, cfg, device=dev, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {"label_ccl": cuda_label.launch_count,
@@ -1604,19 +1614,26 @@ def knn_two_streams_check(dev, calls: int = 50):
             "plans_for_shape": len(plan_streams)}
 
 
-def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
-                  profile_scans: int = 0):
+def sharded_phase(streams, batched_outs, loop_meta, small_lap, loop_lap,
+                  loop_run, dev, profile_scans: int = 0):
     """``distributed.mesh.replay_sharded`` over a mesh of 2 shards on the
     one card (two host threads, K2 and K1 from both) on the first
     ``SHARDED_SCANS`` scans of the batched streams, against
     ``batched_replay``'s; the two-stream K2 check; the factor-sharded solve
     on the loop run's final graph on meshes of 1 and 2 shards against
-    ``optimize_poses``; ``replay(mesh=…)`` on the small lap with a re-solve
-    at every accepted closure, each re-solve held to ``optimize_poses`` on
-    its own input graph (the solve tolerance), the counts to the run without
-    a mesh, and the fused poses' difference reported beside that of two
-    runs without a mesh.  With ``profile_scans``, that many scan-steps of
-    ``replay_sharded`` are traced after its timed run."""
+    ``optimize_poses``; ``replay(mesh=…)`` on the small lap over
+    ``SMALL_LAP_SHARDS`` shards (its 22 keyframe rows cross from shard 0
+    into shard 1) with a re-solve at every accepted closure, each re-solve
+    held to ``optimize_poses`` on its own input graph (the solve
+    tolerance), the counts to the run without a mesh, the blocks
+    reassembled to that run's bit for bit, and the fused poses' difference
+    reported beside that of two runs without a mesh; then
+    :func:`mesh_lap_run` on ``loop_lap``, the ``loop`` phase's lap, over
+    ``MESH_SHARDS`` shards.  With
+    ``profile_scans``, that many scan-steps of ``replay_sharded`` are traced
+    after its timed run.  Returns the launches of ``replay_sharded`` and of
+    the full lap, apart."""
+    from lego_loam_tpu_torch import convert
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.distributed import sharded_pgo
     from lego_loam_tpu_torch.distributed.mesh import make_mesh, replay_sharded
@@ -1633,7 +1650,7 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
     packed = [pack_sequence(sc[:n], tm[:n], cfg, device=dev)
               for sc, _, tm in streams]
     x, v, t = (torch.stack([p[k] for p in packed]) for k in range(3))
-    mesh = make_mesh(2, axis="data", devices=[card, card])
+    mesh = make_mesh(2, devices=[card, card])
     cuda_label.launch_count = 0
     cuda_knn.launch_count = 0
     t0 = time.perf_counter()
@@ -1665,8 +1682,7 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
                             gn_iters=3, pcg_iters=64, return_iters=True)
     # 0 shards: ``optimize_poses`` itself, timed the same way in turn
     for shards in (0, 1, 2, 0, 1, 2):
-        pmesh = make_mesh(max(shards, 1), axis="pgo",
-                          devices=[card] * max(shards, 1))
+        pmesh = make_mesh(max(shards, 1), devices=[card] * max(shards, 1))
 
         def solve():
             if shards == 0:
@@ -1674,8 +1690,8 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
                                       meta.graph, gn_iters=3, pcg_iters=64,
                                       return_iters=True)
             return sharded_pgo.optimize_poses_sharded(
-                meta.kf_pose, meta.kf_count, meta.graph, pmesh, axis="pgo",
-                gn_iters=3, pcg_iters=64, return_iters=True)
+                meta.kf_pose, meta.kf_count, meta.graph, pmesh, gn_iters=3,
+                pcg_iters=64, return_iters=True)
         solve()                                           # warm-up
         times = []
         for _ in range(3):
@@ -1714,7 +1730,8 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
                         out[0].clone()))
         return out
     s0 = sharded_pgo.solve_count
-    lap_mesh = make_mesh(2, axis="pgo", devices=[card, card])
+    lap_mesh = make_mesh(SMALL_LAP_SHARDS,
+                         devices=[card] * SMALL_LAP_SHARDS)
     mapping.optimize_poses_sharded = recorded
     try:
         mesh_state, meshed = replay(lx, lv, lt, lap_cfg, device=dev,
@@ -1722,6 +1739,11 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
     finally:
         mapping.optimize_poses_sharded = solve_sharded
     sharded_solves = sharded_pgo.solve_count - s0
+    blocks_differing = tree_differences(
+        convert.to_numpy_tree(mesh_state.mapping.clouds),
+        convert.to_numpy_tree(plain_state.mapping.clouds))
+    rows_written = [int(p.any(dim=1).sum())
+                    for p in mesh_state.mapping.clouds.surf_valid.parts]
     resolve_diffs = [
         float(torch.max(torch.abs(out - optimize_poses(
             poses, n_kf, g, gn_iters=3, pcg_iters=64))))
@@ -1741,10 +1763,15 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
                     int(mesh_state.mapping.meta.factor_count)],
         "max_fused_position_diff_m": fused_diff(plain, meshed),
         "max_fused_position_diff_plain_runs_m": fused_diff(plain,
-                                                           plain_again)}
+                                                           plain_again),
+        "shards": SMALL_LAP_SHARDS, "rows_written_by_shard": rows_written,
+        "blocks_differing": blocks_differing}
+    del plain_state, mesh_state
+    full_lap, mesh_launches = mesh_lap_run(loop_lap, loop_run, dev, card)
     emit({"phase": "sharded", "replay_sharded": sharded,
           "knn5_two_threads_two_streams": two_streams,
-          "optimize_poses_sharded": solves, "replay_with_mesh": lap})
+          "optimize_poses_sharded": solves, "replay_with_mesh": lap,
+          "replay_with_mesh_full_lap": full_lap})
     assert counts_equal, "replay_sharded counts != batched_replay's"
     assert diff < 0.1, diff
     assert launches["label_ccl"] == 2 * n, launches       # one a shard a step
@@ -1758,7 +1785,106 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, dev,
     assert max(resolve_diffs) < 5e-3, lap
     assert lap["keyframes"][0] == lap["keyframes"][1], lap
     assert lap["factors"][0] == lap["factors"][1], lap
-    return launches
+    assert not blocks_differing, blocks_differing
+    assert sum(w > 0 for w in rows_written) >= 2, rows_written
+    r = full_lap
+    assert not r["outputs_differing"], r["outputs_differing"]
+    assert not r["state_fields_differing"], r["state_fields_differing"]
+    assert not r["shard_rows_differing"], r["shard_rows_differing"]
+    assert r["shard_rows"] == [r["rows_per_shard"]] * MESH_SHARDS, r
+    assert r["host_syncs_per_scan"] == r["loop_host_syncs_per_scan"], r
+    assert r["launches"] == r["loop_launches"], r
+    assert r["launches"]["label_ccl"] == r["scans"], r
+    return launches, mesh_launches
+
+
+MESH_SHARDS = 4
+SMALL_LAP_SHARDS = 16        # 256 rows: 16 a shard, the lap's 22 span two
+
+
+def mesh_devices(card, n: int = MESH_SHARDS):
+    """``n`` shard devices and what they are: every card in turn when the
+    machine has two or more, else ``card`` n times."""
+    cards = torch.cuda.device_count() if card.type == "cuda" else 1
+    if cards >= 2:
+        return ([torch.device("cuda", k % cards) for k in range(n)],
+                f"{n} shards over {cards} cards")
+    return [card] * n, f"{n} shards on one device ({card})"
+
+
+def mesh_lap_run(lap, loop_run, dev, card):
+    """``replay(mesh=…)`` of the ``loop`` phase's lap (``vlp16()`` as
+    shipped, 360 scans, K = 8192) with the keyframe blocks row-sharded over
+    ``MESH_SHARDS`` shards (:func:`mesh_devices`).  Its lap's closures never
+    re-solve, so it must equal the ``loop`` run of this call bit for bit:
+    every output, every field of the final state (the blocks reassembled),
+    the host reads and the kernel launches; each shard must hold exactly its
+    rows of the loop run's blocks.  Scans/s beside ``loop``'s (reported).
+    Every count is zeroed just before the run and read just after; returns
+    (the reading, the launches)."""
+    from lego_loam_tpu_torch import convert
+    from lego_loam_tpu_torch.core import device as D
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.distributed.mesh import make_mesh
+    from lego_loam_tpu_torch.frontend import cuda_label
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline.slam import replay
+
+    scans, _, times = lap
+    cfg = vlp16()
+    n = len(scans)
+    devices, placement = mesh_devices(card)
+    mesh = make_mesh(MESH_SHARDS, devices=devices)
+    x, v, t = pack_sequence(scans, times, cfg, device=dev)
+    replay(x[:10], v[:10], t[:10], cfg, device=dev, mesh=mesh)   # warm-up
+    torch.cuda.synchronize()
+
+    D.reset_sync_count()
+    cuda_label.launch_count = 0
+    cuda_knn.launch_count = 0
+    t0 = time.perf_counter()
+    state, outs = replay(x, v, t, cfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"label_ccl": cuda_label.launch_count,
+                "knn5": cuda_knn.launch_count}
+    syncs = D.sync_count()
+    del x, v, t
+
+    clouds = state.mapping.clouds
+    ref = loop_run["tree"]["mapping"]["clouds"]
+    r = clouds.surf.per_shard
+    shard_bytes = [0] * MESH_SHARDS
+    rows_differing = []
+    for name in ref:
+        for k, part in enumerate(getattr(clouds, name).parts):
+            shard_bytes[k] += part.numel() * part.element_size()
+            if not np.array_equal(part.cpu().numpy(),
+                                  ref[name][k * r:(k + 1) * r]):
+                rows_differing.append(f"{name}[{k}]")
+    result = {
+        "placement": placement, "devices": [str(d) for d in devices],
+        "scans": n, "wall_s": wall, "scans_per_s": n / wall,
+        "loop_scans_per_s": loop_run["scans_per_s"],
+        "rows_per_shard": r, "shard_rows": [p.shape[0] for p in
+                                            clouds.surf.parts],
+        "rows_written_by_shard": [int(p.any(dim=1).sum())
+                                  for p in clouds.surf_valid.parts],
+        "block_bytes_by_shard": shard_bytes,
+        "memory_allocated_by_card": {
+            str(d): torch.cuda.memory_allocated(d)
+            for d in sorted(set(devices), key=str)},
+        "host_syncs": syncs, "host_syncs_per_scan": syncs / n,
+        "loop_host_syncs_per_scan": loop_run["host_syncs"] / n,
+        "launches": launches, "loop_launches": loop_run["launches"],
+        "keyframes": int(state.mapping.meta.kf_count),
+        "outputs_differing": [k for k in loop_run["outs"] if not torch.equal(
+            outs[k].cpu(), loop_run["outs"][k])],
+        "state_fields_differing": tree_differences(
+            convert.to_numpy_tree(state), loop_run["tree"]),
+        "shard_rows_differing": rows_differing}
+    return result, launches
 
 
 MULTIHOST_SCANS = 5
@@ -1809,10 +1935,13 @@ def multihost_phase(dev):
     """The ``torch.distributed`` runtime on the one card: 2 processes over
     ``gloo`` (two ranks may share a card only there), each with 2 shards on
     ``cuda:0`` — the psum, the factor-sharded solve across processes, the
-    gathered data-parallel replay — and 1 process over ``nccl`` (psum and
-    solve; NCCL takes one rank per card).  Held to the single-device solve
-    (1e-4, as on the CPU) and to each stream's own ``replay`` on the card
-    (0.01 m / rad: the card's float atomics sum in no fixed order)."""
+    ``replay`` over the global mesh with a keyframe row on every shard (its
+    gathers all-reduced), the gathered data-parallel replay — and 1 process
+    over ``nccl`` with 2 shards (NCCL takes one rank per card).  Held to the
+    single-device solve (1e-4, as on the CPU), the meshed replay to a
+    one-process replay without a mesh on the card bit for bit (fused poses
+    and reassembled blocks), and each stream to its own ``replay`` on the
+    card (0.01 m / rad)."""
     from lego_loam_tpu_torch.distributed import multihost
     from lego_loam_tpu_torch.graph.posegraph import optimize_poses
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
@@ -1840,6 +1969,20 @@ def multihost_phase(dev):
                 own = replay(x, v, t, cfg, device=dev)[1]["fused"]
                 replay_diff = max(replay_diff, float(np.max(np.abs(
                     fused[stream] - own.cpu().numpy()))))
+            store_cfg = multihost.store_config(n)
+            scans, _, times_ = multihost.stream_sequence(0, n)
+            one_state, one = replay(*pack_sequence(scans, times_, store_cfg,
+                                                   device=dev),
+                                    store_cfg, device=dev)
+            meshed = {
+                "rows_written_by_shard": z["mesh_rows_per_shard"].tolist(),
+                "all_reduces": int(z["mesh_all_reduces"]),
+                "fused_equal_one_process": bool(np.array_equal(
+                    z["mesh_fused"], one["fused"].cpu().numpy())),
+                "blocks_differing": [
+                    name for name, blk in vars(one_state.mapping.clouds)
+                    .items() if not np.array_equal(z[f"mesh_{name}"],
+                                                   blk.cpu().numpy())]}
             report[backend] = {
                 "processes": procs, "shards": int(z["n_devices"]),
                 "seconds": time.perf_counter() - t0,
@@ -1848,7 +1991,7 @@ def multihost_phase(dev):
                 "max_solve_diff": solve_diff, "solve_within_1e-4": solve_ok,
                 "all_reduces": int(z["all_reduces"]),
                 "gathered_fused_shape": list(fused.shape),
-                "max_replay_diff": replay_diff}
+                "max_replay_diff": replay_diff, "replay_with_mesh": meshed}
     emit({"phase": "multihost", **report})
     for backend, r in report.items():
         assert r["shards"] == 2 * r["processes"], r
@@ -1861,6 +2004,10 @@ def multihost_phase(dev):
         assert r["all_reduces"] == 1 + 3 * len(it) + sum(it), r
         assert r["gathered_fused_shape"] == [r["shards"], MULTIHOST_SCANS, 6]
         assert r["max_replay_diff"] < 0.01, r
+        m = r["replay_with_mesh"]
+        assert m["rows_written_by_shard"] == [1] * r["shards"], r
+        assert m["all_reduces"] > 0, r
+        assert m["fused_equal_one_process"] and not m["blocks_differing"], r
 
 
 # --------------------------------------------------------------------------
@@ -2120,6 +2267,7 @@ STEVENS_PERIOD = 700         # one figure-eight (70 s), generated and tiled
 STEVENS_SEED = 77
 STEVENS_KF_CAP = 4096        # the script's KF_CAP for N <= 4000
 STEVENS_CHUNK = 25
+STEVENS_MESH_ATE_TOL = 0.01  # m: the meshed run's ATE against the whole's
 
 
 def stevens_chunk(start: int, stop: int):
@@ -2156,7 +2304,12 @@ def stevens_phase(chunks, check, dev):
     ``benchmarks/stevens_stress.py``'s default: the 700-scan figure-eight
     (seed 77) tiled to 2000 scans (the vehicle retraces the same poses in
     the same world, so lap k's scans are lap 1's; only the stamps
-    advance), through ``replay`` with the script's caps."""
+    advance), through ``replay`` with the script's caps; then again with a
+    mesh of ``MESH_SHARDS`` shards (the 4096 keyframe rows row-sharded, each
+    re-solve factor-sharded and followed by a rebuild that gathers from
+    every shard), held to the whole-store run in its counts and, within
+    ``STEVENS_MESH_ATE_TOL``, its ATE.  Returns the two runs' launches."""
+    from lego_loam_tpu_torch.distributed.mesh import make_mesh
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
     from lego_loam_tpu_torch.io.synthetic import figure_eight_trajectory
     cfg = stevens_config()
@@ -2175,17 +2328,39 @@ def stevens_phase(chunks, check, dev):
     rows = torch.arange(n, device=dev) % STEVENS_PERIOD
     packed = (xb[rows], vb[rows], torch.from_numpy(times).to(dev))
     del xb, vb
-    r = timed_replay((None, gt, times), cfg, dev, packed=packed)
+    r = timed_replay((None, gt, times), cfg, dev, with_fused=True,
+                     packed=packed)
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)     # (a CPU rehearsal: the CPU)
+    devices, placement = mesh_devices(card)
+    m = timed_replay((None, gt, times), cfg, dev, with_fused=True,
+                     packed=packed, mesh=make_mesh(MESH_SHARDS,
+                                                   devices=devices))
     del packed
+    counts = ("keyframes", "loop_factors", "resolves", "kf_dropped",
+              "factor_dropped", "map_sat")
+    meshed = {"placement": placement,
+              **{k: m[k] for k in counts + ("scans_per_s", "ms_per_resolve",
+                                            "host_syncs_per_scan",
+                                            "launches", "ate")},
+              "ate_rmse_diff_m": m["ate"]["rmse"] - r["ate"]["rmse"],
+              "max_fused_position_diff_m": float(np.max(np.linalg.norm(
+                  m.pop("fused")[:, 3:] - r.pop("fused")[:, 3:], axis=1)))}
     emit({"phase": "stevens",
           "config": "vlp16(), max_keyframes 4096, max_loop_factors >= 1024",
           "sequence": dict(scans=n, period=STEVENS_PERIOD, seed=STEVENS_SEED,
-                           trajectory="figure8", noise=0.01), **r})
+                           trajectory="figure8", noise=0.01), **r,
+          "replay_with_mesh": meshed})
     assert r["kf_dropped"] == r["factor_dropped"] == r["map_sat"] == 0, r
     assert r["loop_factors"] >= 1, r["loop_factors"]
     assert np.isfinite(r["ate"]["rmse"]), r["ate"]
     assert r["launches"]["label_ccl"] == n, r["launches"]
-    return r["launches"]
+    # the placement changes no result; only the sharded re-solves sum in
+    # another order (1.1e-4 m on the small lap)
+    assert all(m[k] == r[k] for k in counts), meshed
+    assert abs(meshed["ate_rmse_diff_m"]) < STEVENS_MESH_ATE_TOL, meshed
+    assert m["launches"]["label_ccl"] == n, m["launches"]
+    return r["launches"], m["launches"]
 
 
 SCALING_SCANS = 40
@@ -2416,7 +2591,7 @@ def main() -> int:
         args.profile = 20
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from lego_loam_tpu_torch import hostlib, kernels
+    from lego_loam_tpu_torch import convert, hostlib, kernels
     from lego_loam_tpu_torch.core.config import hdl64, vlp16
     from lego_loam_tpu_torch.io.synthetic import make_sequence
 
@@ -2522,10 +2697,16 @@ def main() -> int:
             state, packed, p, cfg, dev), p)
     del state, packed
     lap = data.pop("lap")
-    paths["loop"], state = loop_phase(lap, dev)
+    paths["loop"], state, loop_outs, loop_result = loop_phase(lap, dev)
     resolve_phase(state, dev)
     loop_meta = state.mapping.meta
-    del state
+    # what the full lap's replay(mesh=…) in `sharded` is held to, off the card
+    loop_run = {"tree": convert.to_numpy_tree(state),
+                "outs": {k: o.cpu() for k, o in loop_outs.items()},
+                "scans_per_s": loop_result["scans_per_s"],
+                "host_syncs": loop_result["host_syncs"],
+                "launches": dict(paths["loop"])}
+    del state, loop_outs
     torch.cuda.empty_cache()
     small_lap = data.pop("small_lap")
     loop_parity_phase(small_lap, dev)
@@ -2542,14 +2723,16 @@ def main() -> int:
     streams = [tuple(a[:n_batch] for a in bench)] + data.pop("batch")
     paths["batched"], batched_outs = batched_phase(streams, dev,
                                                    args.profile)
-    paths["sharded"] = sharded_phase(streams, batched_outs, loop_meta,
-                                     small_lap, dev, args.profile)
+    paths["sharded"], paths["sharded_mesh_lap"] = sharded_phase(
+        streams, batched_outs, loop_meta, small_lap, lap, loop_run, dev,
+        args.profile)
+    del loop_run
     del batched_outs
     torch.cuda.empty_cache()
     multihost_phase(dev)
     if args.long:
-        paths["stevens"] = stevens_phase(data.pop("stevens"),
-                                         data.pop("stevens_check"), dev)
+        paths["stevens"], paths["stevens_mesh"] = stevens_phase(
+            data.pop("stevens"), data.pop("stevens_check"), dev)
         torch.cuda.empty_cache()
         d1_cost_phase(bench, lap, loop_meta, dev)
         scaling_phase(dev)

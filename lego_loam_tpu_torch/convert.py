@@ -9,7 +9,9 @@ same field names.  The caller does the ``jax → numpy`` step
 (``jax.tree.map(np.asarray, …)``); nothing here knows about JAX.
 
 One field differs by design: ``SlamState.scan_index`` is a host ``int`` in
-the port.
+the port.  The NumPy form is always the whole (K, …) arrays: keyframe blocks
+row-sharded over a mesh are assembled, and :func:`from_numpy_tree` gives
+whole blocks (``pipeline/slam.py::replay_from(mesh=…)`` places them).
 
 :func:`split_batched` takes a BATCHED container of the JAX package (what its
 ``batched_replay`` returns: a leading B axis on every leaf) and gives B of the
@@ -118,7 +120,12 @@ def split_batched(kind: str, tree: Any, device: DeviceLike = None) -> List:
 
 
 def to_numpy_tree(obj: Any):
-    """The port's container → nested dict of NumPy arrays (same names)."""
+    """The port's container → nested dict of NumPy arrays (same names).
+    Row-sharded keyframe blocks are assembled whole
+    (``graph/keyframes.py::whole``; on a mesh over a process group a
+    collective, so every process must call this)."""
+    if isinstance(obj, K.RowShards):
+        obj = K.whole(obj)
     if dataclasses.is_dataclass(obj):
         return {f.name: to_numpy_tree(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}

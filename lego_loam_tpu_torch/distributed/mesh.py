@@ -1,10 +1,13 @@
 """Mesh construction + data-parallel replay sharding.
 
 The reference has no distributed story — its scale axis is threads in one
-process.  Here, as in the JAX package, a mesh is an ordered set of shards
-under one axis name: independent replay streams (multi-session) shard over
-``data`` (:func:`replay_sharded`); the pose-graph factor axis shards over
-``pgo`` (``distributed/sharded_pgo.py``).
+process.  Here a mesh is an ordered tuple of shards: independent replay
+streams (multi-session) shard over it (:func:`replay_sharded`); in the
+single-stream mode (``pipeline/slam.py::replay(mesh=…)``) the keyframe cloud
+blocks row-shard over it (``graph/keyframes.py::RowShards``) and the
+pose-graph factor axis too (``distributed/sharded_pgo.py``).  The JAX
+package names the mesh's axis to pick a ``shard_map`` axis; a port mesh has
+one axis and no name.
 
 A shard is a device.  A device may appear more than once: several shards on
 one card (or on the CPU) share it, which is how a one-card machine and the
@@ -31,14 +34,13 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One named axis of shards.  ``devices``: this process's shards, in
+    """One axis of shards.  ``devices``: this process's shards, in
     order.  With ``process_group`` the mesh spans the default
     ``torch.distributed`` process group: its ``process_count`` processes
     hold as many shards each, process ``process_index`` holds global shards
     ``[process_index · len(devices), …)``, and sums over the mesh are
     all-reduced over the group."""
     devices: Tuple[torch.device, ...]
-    axis: str = "data"
     process_count: int = 1
     process_index: int = 0
     process_group: bool = False
@@ -48,12 +50,8 @@ class Mesh:
         """Shards over every process."""
         return len(self.devices) * self.process_count
 
-    def check_axis(self, axis: str) -> None:
-        if axis != self.axis:
-            raise ValueError(f"mesh axis is {self.axis!r}, not {axis!r}")
 
-
-def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
+def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     """A one-process mesh.  ``devices`` (may repeat a device) — by default
     every CUDA card, and a machine without one raises; ``n_devices`` takes
@@ -66,7 +64,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data",
     n = len(devices) if n_devices is None else n_devices
     if not 1 <= n <= len(devices):
         raise ValueError(f"{n} shards asked of {len(devices)} devices")
-    return Mesh(devices=tuple(devices[:n]), axis=axis)
+    return Mesh(devices=tuple(devices[:n]))
 
 
 def _on(dev: torch.device):
@@ -77,7 +75,7 @@ def _on(dev: torch.device):
 
 
 def replay_sharded(xyz: Tensor, valid: Tensor, times: Tensor,
-                   cfg: LegoLoamConfig, mesh: Mesh, axis: str = "data"):
+                   cfg: LegoLoamConfig, mesh: Mesh):
     """Replay B independent sequences, sharded over ``mesh``'s devices.
 
     Args: (B, N, P*3) / (B, N, P) / (B, N) stacked sequences (coordinates
@@ -93,7 +91,6 @@ def replay_sharded(xyz: Tensor, valid: Tensor, times: Tensor,
     device; outputs dict of (B, N, …) tensors on the device of ``xyz``),
     each stream's equal to its own ``replay``.
     """
-    mesh.check_axis(axis)
     n = len(mesh.devices)
     B = xyz.shape[0]
     if B % n:

@@ -5,7 +5,9 @@ transport is an in-process channel plus ROS topics.  Here N processes join
 one ``torch.distributed`` process group; their local shards form one GLOBAL
 mesh (ranks × local shards), and the sharded code paths run across them:
 the factor-sharded pose-graph solve (``distributed/sharded_pgo.py``: each
-partial summed over the process's shards, then ``all_reduce``\\ d) and the
+partial summed over the process's shards, then ``all_reduce``\\ d), the
+single-stream ``replay(mesh=…)`` whose keyframe rows are spread over every
+process (``graph/keyframes.py::RowShards``: each gather all-reduced) and the
 data-parallel replay (each process replays its own streams with
 ``distributed/mesh.py::replay_sharded``; the outputs are gathered).
 Counterpart of the JAX package's ``distributed/multihost.py``
@@ -32,6 +34,7 @@ machine without a card raises.  ``--bench`` times the replay instead.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import sys
 import time
@@ -40,6 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import convert
 from ..core import se3
 from ..core.config import (FeatureConfig, LaserConfig, LegoLoamConfig,
                            MappingConfig, PipelineConfig)
@@ -47,6 +51,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..graph.posegraph import add_factor, empty_graph
 from ..io.npz_io import pack_sequence
 from ..io.synthetic import make_sequence
+from ..pipeline.slam import replay
 from .mesh import Mesh, replay_sharded
 from . import sharded_pgo
 from .sharded_pgo import _psum, optimize_poses_sharded
@@ -66,11 +71,11 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
 
 
-def global_mesh(devices: Sequence[DeviceLike], axis: str = "data") -> Mesh:
+def global_mesh(devices: Sequence[DeviceLike]) -> Mesh:
     """One mesh over every process's shards: this process contributes
     ``devices``, every other process as many."""
     import torch.distributed as dist
-    return Mesh(devices=tuple(torch.device(d) for d in devices), axis=axis,
+    return Mesh(devices=tuple(torch.device(d) for d in devices),
                 process_count=dist.get_world_size(),
                 process_index=dist.get_rank(), process_group=True)
 
@@ -130,6 +135,16 @@ def replay_config() -> LegoLoamConfig:
     )
 
 
+def store_config(rows: int) -> LegoLoamConfig:
+    """:func:`replay_config` with a mapping cycle every scan, a keyframe
+    every cycle and ``rows`` keyframe rows: the meshed replay's, where
+    ``rows`` scans with a mesh of ``rows`` shards write one row a shard."""
+    cfg = replay_config()
+    return cfg.replace(mapping=dataclasses.replace(
+        cfg.mapping, mapping_frequency_divider=1, keyframe_distance=0.0,
+        max_keyframes=rows))
+
+
 def stream_sequence(stream: int, n_scans: int):
     """(scans, gt, times) of global stream ``stream`` of the workers."""
     return make_sequence(n_scans, replay_config(), seed=100 + stream,
@@ -169,17 +184,19 @@ def _setup(coordinator: str, num_processes: int, process_id: int,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     initialize(coordinator, num_processes, process_id, backend)
-    return device, global_mesh([device] * local_devices, axis="data")
+    return device, global_mesh([device] * local_devices)
 
 
 def run_worker(coordinator: str, num_processes: int, process_id: int,
                out_path: str, backend: str, n_scans: int = 5,
                local_devices: int = 2, device: DeviceLike = None) -> None:
     """Worker body: join the group, run the cross-process psum check, the
-    factor-sharded pose-graph solve over the global mesh, and a
-    data-parallel replay of this process's own streams (one a local shard);
-    process 0 writes the results.  A barrier runs before the group is
-    torn down."""
+    factor-sharded pose-graph solve over the global mesh, a ``replay`` of
+    stream 0 over the global mesh (:func:`store_config`: a keyframe row on
+    every shard, so its gathers cross processes; every process replays the
+    same scans and ends with the same state), and a data-parallel replay of
+    this process's own streams (one a local shard); process 0 writes the
+    results.  A barrier runs before the group is torn down."""
     import torch.distributed as dist
     device, mesh = _setup(coordinator, num_processes, process_id, device,
                           backend, local_devices)
@@ -188,18 +205,36 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
 
         poses, n_nodes, g = _pgo_graph(device)
         solved, pcg_iters = optimize_poses_sharded(
-            poses, n_nodes, g, mesh, axis="data", gn_iters=6, pcg_iters=64,
+            poses, n_nodes, g, mesh, gn_iters=6, pcg_iters=64,
             return_iters=True)
+        all_reduces = sharded_pgo.all_reduce_count
+
+        rows = mesh.size
+        store_cfg = store_config(rows)
+        scans, _, times = stream_sequence(0, rows)
+        state, mesh_outs = replay(
+            *pack_sequence(scans, times, store_cfg, device=device),
+            store_cfg, device=device, mesh=mesh)
+        mesh_reduces = sharded_pgo.all_reduce_count - all_reduces
+        # rows written in each shard, gathered in global shard order
+        parts = state.mapping.clouds.surf_valid.parts
+        written = _gather(torch.stack([p.any(dim=1).sum() for p in parts]),
+                          backend)
+        blocks = convert.to_numpy_tree(state.mapping.clouds)  # a collective
 
         x, v, t = _local_streams(mesh, n_scans, device)
-        local_mesh = Mesh(devices=mesh.devices, axis="data")
+        local_mesh = Mesh(devices=mesh.devices)
         _, outs = replay_sharded(x, v, t, replay_config(), local_mesh)
         fused = _gather(outs["fused"], backend)
         if process_id == 0:
             np.savez(out_path, psum=psum_val, solved=solved.cpu().numpy(),
                      pcg_iterations=np.asarray(pcg_iters), fused=fused,
-                     all_reduces=sharded_pgo.all_reduce_count,
-                     n_devices=mesh.size, n_processes=num_processes)
+                     all_reduces=all_reduces, n_devices=mesh.size,
+                     n_processes=num_processes,
+                     mesh_fused=mesh_outs["fused"].cpu().numpy(),
+                     mesh_rows_per_shard=written,
+                     mesh_all_reduces=mesh_reduces,
+                     **{f"mesh_{k}": blk for k, blk in blocks.items()})
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -217,7 +252,7 @@ def bench_worker(coordinator: str, num_processes: int, process_id: int,
     try:
         cfg = replay_config()
         x, v, t = _local_streams(mesh, n_scans, device)
-        local_mesh = Mesh(devices=mesh.devices, axis="data")
+        local_mesh = Mesh(devices=mesh.devices)
         replay_sharded(x[:, :2], v[:, :2], t[:, :2], cfg, local_mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)

@@ -93,15 +93,14 @@ def _psum(parts, mesh, home: torch.device) -> Tensor:
 
 
 def optimize_poses_sharded(poses: Tensor, node_count: Tensor, g: FactorGraph,
-                           mesh, axis: str = "pgo", gn_iters: int = 8,
-                           pcg_iters: int = 64, return_iters: bool = False):
+                           mesh, gn_iters: int = 8, pcg_iters: int = 64,
+                           return_iters: bool = False):
     """Same result as ``graph/posegraph.py::optimize_poses``, with the factor
-    axis sharded over ``mesh`` (whose axis must be named ``axis``) and one
-    reduction per partial sum.  The result lies on the device of ``poses``;
-    with ``return_iters`` also the list of PCG iteration counts, one per GN
-    step (host ints, the same on every process)."""
+    axis sharded over ``mesh`` and one reduction per partial sum.  The
+    result lies on the device of ``poses``; with ``return_iters`` also the
+    list of PCG iteration counts, one per GN step (host ints, the same on
+    every process)."""
     global solve_count
-    mesh.check_axis(axis)
     with _count_lock:
         solve_count += 1
     home = poses.device

@@ -12,6 +12,13 @@ state of the pipeline (K × (1024 + 2048 + 512 + 512) points of float32 plus
 masks), and copying them per scan would cost more than the rest of the step.
 A caller that needs the old blocks must clone them first.  The small
 metadata (poses, stamps, counters) is never written in place.
+
+Placement: a block is a whole (K, …) tensor on the state's device or, in
+the single-stream sharded mode (``pipeline/slam.py::replay(mesh=…)``), a
+:class:`RowShards` — its rows cut over the shards of a mesh, as the JAX
+package row-shards them (``NamedSharding(mesh, P(axis))``).  Every reader
+goes through :func:`take_rows` and every write through :func:`put_row_`,
+which take both alike; :func:`whole` assembles a block back.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, resolve_device
 from ..core.types import Container
+from ..distributed.sharded_pgo import _psum
 from ..match.voxelhash import voxel_downsample, voxel_hash_downsample
 from ..solve.scan2map import MapCloud
 
@@ -37,13 +45,110 @@ OUTLIER_CAP = 512
 SCAN2D_CAP = 512
 
 
+class RowShards:
+    """One (K, …) keyframe block row-sharded over a mesh of n =
+    ``mesh.size`` shards: global shard s holds the contiguous rows
+    ``[s·r, min((s+1)·r, K))``, r = ceil(K / n) — the row layout of the JAX
+    package's ``NamedSharding(mesh, P(axis))``.  ``parts`` are THIS
+    process's shards, each on its shard's device (a device may repeat); on a
+    mesh over a process group the other processes hold the other rows, and
+    global shard s = ``process_index · len(devices) + k`` for local shard k.
+    ``home`` is the state's device, where :func:`take_rows` lands its rows.
+    ``shape`` is the whole block's."""
+
+    def __init__(self, parts, mesh, rows: int, home: torch.device):
+        self.parts = tuple(parts)
+        self.mesh = mesh
+        self.home = home
+        self.shape = (rows,) + tuple(self.parts[0].shape[1:])
+        self.dtype = self.parts[0].dtype
+        self.per_shard, self.spans = _layout(rows, mesh)
+
+    def take(self, idx: Tensor) -> Tensor:
+        owner = idx // self.per_shard
+        first = self.mesh.process_index * len(self.mesh.devices)
+        out = torch.zeros((idx.shape[0],) + self.shape[1:], dtype=self.dtype,
+                          device=self.home)
+        for k, ((a, b), part) in enumerate(zip(self.spans, self.parts)):
+            if a == b:
+                continue                 # a trailing shard with no rows
+            local = torch.clamp(idx - a, 0, b - a - 1).to(part.device)
+            rows = part.index_select(0, local).to(self.home)
+            mine = (owner == first + k).reshape(
+                (-1,) + (1,) * (rows.dim() - 1))
+            out = torch.where(mine, rows, out)
+        if self.mesh.process_group:
+            out = _psum_bits(out, self.mesh, self.home)
+        return out
+
+    def put_(self, idx: Tensor, val: Tensor) -> "RowShards":
+        for (a, b), part in zip(self.spans, self.parts):
+            if a == b:
+                continue
+            local = torch.where((idx >= a) & (idx < b), idx - a, b - a)
+            put_row_(part, local.to(part.device), val.to(part.device))
+        return self
+
+
+def _layout(rows: int, mesh):
+    """(r, this process's (first, end) row spans) of :class:`RowShards`."""
+    n = mesh.size
+    if n > rows:
+        raise ValueError(f"a mesh of {n} shards over {rows} keyframe rows")
+    r = -(-rows // n)
+    first = mesh.process_index * len(mesh.devices)
+    return r, tuple((min(s * r, rows), min((s + 1) * r, rows))
+                    for s in range(first, first + len(mesh.devices)))
+
+
+def _psum_bits(t: Tensor, mesh, home: torch.device) -> Tensor:
+    """Sum over the mesh of a tensor that is zero on every process but the
+    owner's, exactly: float32 bits summed as int32 (one term plus zeros), a
+    bool mask as uint8."""
+    if t.dtype == torch.bool:
+        return _psum([t.to(torch.uint8)], mesh, home).to(torch.bool)
+    return _psum([t.view(torch.int32)], mesh, home).view(t.dtype)
+
+
+def shard_rows(block: Tensor, mesh) -> RowShards:
+    """A whole (K, …) block cut into :class:`RowShards` over ``mesh`` (this
+    process's rows copied to its shards' devices)."""
+    _, spans = _layout(block.shape[0], mesh)
+    parts = [block[a:b].to(dev, copy=True)
+             for (a, b), dev in zip(spans, mesh.devices)]
+    return RowShards(parts, mesh, block.shape[0], block.device)
+
+
+def whole(block) -> Tensor:
+    """The whole (K, …) block on the state's device.  On a mesh over a
+    process group this is a collective: every process must call it."""
+    if isinstance(block, Tensor):
+        return block
+    if not block.mesh.process_group:
+        return torch.cat([p.to(block.home) for p in block.parts])
+    return block.take(torch.arange(block.shape[0], device=block.home))
+
+
+def take_rows(block, idx: Tensor) -> Tensor:
+    """``block[idx]`` for a 1-D index tensor, on the state's device, for a
+    whole block and a :class:`RowShards` alike — bit for bit, in ``idx``
+    order, with no host read: each shard gathers its clamped local rows,
+    and the owner's are selected on the device (on a mesh over a process
+    group, summed exactly across processes)."""
+    idx = idx.to(torch.int64)
+    if isinstance(block, Tensor):
+        return block.index_select(0, idx)
+    return block.take(idx)
+
+
 @dataclasses.dataclass
 class KeyframeClouds(Container):
     """The BIG per-keyframe cloud blocks, kept separate from the pose/stamp
     metadata so they can be updated in place (see the module docstring).
 
     Cloud blocks are stored ROW-FLATTENED (K, C*3), the JAX package's
-    layout; use :func:`as_points` to view a gathered row as (…, C, 3)."""
+    layout; use :func:`as_points` to view a gathered row as (…, C, 3).
+    Each block is a tensor or, under a mesh, a :class:`RowShards`."""
 
     corner: Tensor        # (K, CORNER_CAP*3)  sensor frame
     corner_valid: Tensor  # (K, CORNER_CAP)
@@ -137,13 +242,21 @@ def as_flat(pts: Tensor) -> Tensor:
     return pts.reshape(pts.shape[:-2] + (-1,))
 
 
-def empty_clouds(cfg: LegoLoamConfig, device: DeviceLike = None
-                 ) -> KeyframeClouds:
+def empty_clouds(cfg: LegoLoamConfig, device: DeviceLike = None,
+                 mesh=None) -> KeyframeClouds:
+    """Zero blocks on ``device`` or, with ``mesh``, row-sharded over it
+    (``device`` is then the home of their gathers)."""
     device = resolve_device(device)
     K = cfg.mapping.max_keyframes
 
     def z(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        if mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        _, spans = _layout(K, mesh)
+        return RowShards([torch.zeros((b - a,) + shape[1:], dtype=dtype,
+                                      device=dev)
+                          for (a, b), dev in zip(spans, mesh.devices)],
+                         mesh, K, device)
 
     return KeyframeClouds(
         corner=z((K, CORNER_CAP * 3), torch.float32),
@@ -200,14 +313,27 @@ def null_row(capacity: int, device: DeviceLike = None) -> KeyframeRow:
         scan2d_valid=z((SCAN2D_CAP,), torch.bool))
 
 
-def take_row(arr: Tensor, idx: Tensor) -> Tensor:
+def place_clouds(clouds: KeyframeClouds, mesh) -> KeyframeClouds:
+    """The blocks row-sharded over ``mesh``: as they are if they already
+    are, else a sharded copy (a whole store, or one sharded over another
+    mesh, is left untouched)."""
+    return KeyframeClouds(**{
+        name: (blk if isinstance(blk, RowShards) and blk.mesh == mesh
+               else shard_rows(whole(blk), mesh))
+        for name, blk in ((n, getattr(clouds, n)) for n in _BLOCKS)})
+
+
+def take_row(arr, idx: Tensor) -> Tensor:
     """``arr[idx]`` for a () index tensor, without reading it on the host."""
-    return arr.index_select(0, idx.reshape(1).to(torch.int64))[0]
+    return take_rows(arr, idx.reshape(1))[0]
 
 
-def put_row_(arr: Tensor, idx: Tensor, val: Tensor) -> Tensor:
+def put_row_(arr, idx: Tensor, val: Tensor):
     """IN PLACE ``arr[idx] = val``; an index past the end writes nothing
-    (the row is rewritten with its own content), with no host read."""
+    (the row is rewritten with its own content), with no host read.  A
+    :class:`RowShards` writes the row into its owner shard only."""
+    if isinstance(arr, RowShards):
+        return arr.put_(idx.to(torch.int64), val)
     cap = arr.shape[0]
     i = torch.clamp(idx.reshape(1).to(torch.int64), max=cap - 1)
     keep = arr.index_select(0, i)
@@ -222,7 +348,9 @@ def put_row(arr: Tensor, idx: Tensor, val: Tensor) -> Tensor:
 
 def apply_row(clouds: KeyframeClouds, row: KeyframeRow) -> KeyframeClouds:
     """Write one row into the keyframe blocks IN PLACE (an index equal to
-    the capacity drops it) and return the same container."""
+    the capacity drops it) and return the same container.  Sharded blocks
+    take the row in its owner shard; every other shard is given its own
+    row count as the index, which writes nothing."""
     for name in _BLOCKS:
         put_row_(getattr(clouds, name), row.idx, getattr(row, name))
     return clouds
@@ -285,9 +413,9 @@ def assemble_global_map(store: KeyframeStore, center: Tensor,
     for blk, vld in ((store.corner, store.corner_valid),
                      (store.surf, store.surf_valid),
                      (store.outlier, store.outlier_valid)):
-        ok = vld[sel] & sel_ok[:, None]
-        blocks.append(_transform_block(pose, as_points(blk[sel]), ok)
-                      .reshape(-1, 3))
+        ok = take_rows(vld, sel) & sel_ok[:, None]
+        blocks.append(_transform_block(
+            pose, as_points(take_rows(blk, sel)), ok).reshape(-1, 3))
         valids.append(ok.reshape(-1))
     xyz = torch.cat(blocks, dim=0)
     ok = torch.cat(valids, dim=0)
@@ -334,15 +462,14 @@ def assemble_submap(store: KeyframeStore, cur_pose: Tensor,
     sel_ok = torch.isfinite(d_sel)                       # (window,)
 
     sel_pose = store.pose[sel_idx]
-    corner_valid = store.corner_valid[sel_idx] & sel_ok[:, None]
-    corner_w = _transform_block(
-        sel_pose, as_points(store.corner[sel_idx]), corner_valid)
-    surf_valid = store.surf_valid[sel_idx] & sel_ok[:, None]
-    surf_w = _transform_block(
-        sel_pose, as_points(store.surf[sel_idx]), surf_valid)
-    out_valid = store.outlier_valid[sel_idx] & sel_ok[:, None]
-    out_w = _transform_block(
-        sel_pose, as_points(store.outlier[sel_idx]), out_valid)
+
+    def world(blk, vld):
+        ok = take_rows(vld, sel_idx) & sel_ok[:, None]
+        return _transform_block(sel_pose, as_points(take_rows(blk, sel_idx)),
+                                ok), ok
+    corner_w, corner_valid = world(store.corner, store.corner_valid)
+    surf_w, surf_valid = world(store.surf, store.surf_valid)
+    out_w, out_valid = world(store.outlier, store.outlier_valid)
 
     corner_xyz, corner_ok, n_vox_c = voxel_downsample(
         corner_w.reshape(-1, 3), corner_valid.reshape(-1),

@@ -61,7 +61,7 @@ from ..core.types import Container
 from ..match.voxelhash import recip32
 from ..solve.scan2map import MapCloud
 from .keyframes import (CORNER_CAP, OUTLIER_CAP, SURF_CAP, KeyframeClouds,
-                        as_points)
+                        as_points, take_rows)
 
 Tensor = torch.Tensor
 
@@ -217,8 +217,8 @@ def rebuild(kf_pose: Tensor, kf_count: Tensor, clouds: KeyframeClouds,
     tag = torch.where(in_range, sel_c.to(torch.int32), -1)
 
     def world(block, valid_block):
-        pts = as_points(block[sel_c])                        # (W, C, 3)
-        ok = valid_block[sel_c] & in_range[:, None]
+        pts = as_points(take_rows(block, sel_c))             # (W, C, 3)
+        ok = take_rows(valid_block, sel_c) & in_range[:, None]
         w = se3.apply(pose[:, None, :], pts)
         return (torch.where(ok[:, :, None], w, 0.0).reshape(-1, 3),
                 ok.reshape(-1))

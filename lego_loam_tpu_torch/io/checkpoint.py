@@ -44,7 +44,10 @@ def _spec(leaf) -> tuple:
 
 
 def save_state(path: str, state: Any) -> None:
-    """Write a port state container (e.g. ``SlamState``) to ``path``."""
+    """Write a port state container (e.g. ``SlamState``) to ``path``.
+    Keyframe blocks row-sharded over a mesh are written whole
+    (``convert.to_numpy_tree`` assembles them), so the file is the JAX
+    package's either way."""
     flat = _leaves(state)
     data = {f"leaf_{i}": convert.to_numpy_tree(v)
             for i, (_, v) in enumerate(flat)}

@@ -25,7 +25,8 @@ import torch
 from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import host_bool
-from ..graph.keyframes import KeyframeRow, KeyframeStore, as_points, take_row
+from ..graph.keyframes import (KeyframeRow, KeyframeStore, as_points,
+                               take_row, take_rows)
 from ..match.voxelhash import voxel_downsample
 from .icp import icp_align
 
@@ -67,9 +68,10 @@ def _gather_history(store: KeyframeStore, row: KeyframeRow, center: Tensor,
     ks = torch.clamp(ks, 0, store.capacity - 1).to(torch.int64)
 
     pose = store.pose[ks]                                   # (W, 6)
-    pts = torch.cat([as_points(store.corner[ks]),
-                     as_points(store.surf[ks])], dim=1)     # (W, C, 3)
-    valid = torch.cat([store.corner_valid[ks], store.surf_valid[ks]], dim=1)
+    pts = torch.cat([as_points(take_rows(store.corner, ks)),
+                     as_points(take_rows(store.surf, ks))], dim=1)  # (W, C, 3)
+    valid = torch.cat([take_rows(store.corner_valid, ks),
+                       take_rows(store.surf_valid, ks)], dim=1)
     if row is not None:
         use_row = (ks == row.idx)[:, None]
         row_pts, row_valid = _row_points(row)

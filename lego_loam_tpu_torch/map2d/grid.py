@@ -28,7 +28,7 @@ import torch
 
 from ..core import se3
 from ..core.config import LegoLoamConfig
-from ..graph.keyframes import KeyframeStore, as_points
+from ..graph.keyframes import KeyframeStore, as_points, take_rows
 from ..match.voxelhash import recip32
 
 Tensor = torch.Tensor
@@ -164,8 +164,8 @@ def build_occupancy_grid(store: KeyframeStore, center: Tensor,
         origin = center[:2] - 0.5 * g.max_cells * g.resolution
 
     poses = store.pose[sel]                              # (F, 6)
-    pts = as_points(store.scan2d[sel])                   # (F, S, 3)
-    valid = store.scan2d_valid[sel] & sel_ok[:, None]
+    pts = as_points(take_rows(store.scan2d, sel))        # (F, S, 3)
+    valid = take_rows(store.scan2d_valid, sel) & sel_ok[:, None]
     world = se3.apply(poses[:, None, :], pts)            # (F, S, 3)
     origins = poses[:, None, 3:6].expand(world.shape)
 

@@ -116,8 +116,10 @@ class MappingState(Container):
         return self.meta.aft_mapped
 
 
-def init_state(cfg: LegoLoamConfig, device: DeviceLike = None
-               ) -> MappingState:
+def init_state(cfg: LegoLoamConfig, device: DeviceLike = None,
+               mesh=None) -> MappingState:
+    """Fresh mapping state on ``device``; with ``mesh`` the keyframe cloud
+    blocks are row-sharded over it."""
     device = resolve_device(device)
     m = cfg.mapping
     K = m.max_keyframes
@@ -136,7 +138,7 @@ def init_state(cfg: LegoLoamConfig, device: DeviceLike = None
         aft_mapped=f32(6), bef_mapped=f32(6),
         initialized=torch.zeros((), dtype=torch.bool, device=device),
         kf_dropped=i32(), factor_dropped=i32(), map_sat=i32())
-    return MappingState(meta=meta, clouds=empty_clouds(cfg, device))
+    return MappingState(meta=meta, clouds=empty_clouds(cfg, device, mesh))
 
 
 def predict_pose(meta: MappingMeta, odom: Tensor) -> Tensor:
@@ -154,16 +156,16 @@ def fuse_pose(state: MappingState, odom: Tensor) -> Tensor:
 
 
 def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
-                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None,
-                 pgo_axis: str = "pgo"):
+                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None):
     """One mapping cycle.
 
     ``mesh``: optional ``distributed/mesh.py::Mesh``; a loop closure's
-    pose-graph re-solve then runs factor-sharded over its ``pgo_axis``
+    pose-graph re-solve then runs factor-sharded over it
     (``distributed/sharded_pgo.py``) instead of on one device.
 
-    ``clouds`` is read-only; the (possibly dropped) inserted keyframe row
-    comes back for the caller to ``apply_row``.  Returns
+    ``clouds`` (whole or row-sharded blocks, read through
+    ``keyframes.take_rows``) is read-only; the (possibly dropped) inserted
+    keyframe row comes back for the caller to ``apply_row``.  Returns
     (new_meta, KeyframeRow, mapped_pose (6,), loop_diag (8,)):
     ``loop_diag`` = [attempted, accepted, fitness, |corr translation|,
     max |corr rotation|, old_idx, latest_idx, +1 re-solved / −1 rejected as
@@ -273,7 +275,7 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
             (kf_pose, grid, graph, fcount, fdrop, map_sat, pose,
              loop_diag) = _close_loop(res, kf_pose, kf_count, grid, graph,
                                       fcount, fdrop, map_sat, pose, clouds,
-                                      cfg, mesh, pgo_axis)
+                                      cfg, mesh)
 
     new_meta = MappingMeta(
         kf_pose=kf_pose, kf_stamp=kf_stamp, kf_count=kf_count,
@@ -285,7 +287,7 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
 
 
 def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
-                aft, clouds, cfg, mesh=None, pgo_axis="pgo"):
+                aft, clouds, cfg, mesh=None):
     """The rest of a loop attempt (``performLoopClosure`` :767-854 and
     ``correctPoses`` :1481-1511): the diagnostics vector, the loop factor
     (a masked write: added iff the closure was accepted) and, iff accepted
@@ -334,7 +336,7 @@ def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
         latest = res["latest_idx"]
         old_latest = take_row(kf_pose, latest)
         solve = (optimize_poses if mesh is None else functools.partial(
-            optimize_poses_sharded, mesh=mesh, axis=pgo_axis))
+            optimize_poses_sharded, mesh=mesh))
         with stage("loop_resolve", dev):
             new_poses, iters = solve(kf_pose, kf_count, graph, gn_iters=3,
                                      pcg_iters=64, return_iters=True)

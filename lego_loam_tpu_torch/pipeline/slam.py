@@ -44,11 +44,14 @@ class SlamState(Container):
     scan_index: int          # host-side: decides the mapping cadence
 
 
-def init_state(cfg: LegoLoamConfig, device: DeviceLike = None) -> SlamState:
+def init_state(cfg: LegoLoamConfig, device: DeviceLike = None,
+               mesh=None) -> SlamState:
+    """A fresh state on ``device``; with ``mesh`` its keyframe cloud blocks
+    are row-sharded over the mesh (``graph/keyframes.py::RowShards``)."""
     device = resolve_device(device)
     return SlamState(
         odo=odometry_mod.init_state(cfg, device),
-        mapping=mapping_mod.init_state(cfg, device),
+        mapping=mapping_mod.init_state(cfg, device, mesh),
         scan_index=0)
 
 
@@ -67,15 +70,16 @@ def _mapping_due(scan_index: int, cfg: LegoLoamConfig) -> bool:
 
 
 def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
-              device: DeviceLike = None, mesh=None, pgo_axis: str = "pgo"):
+              device: DeviceLike = None, mesh=None):
     """Process one scan through the full pipeline.
 
     ``mesh``: optional ``distributed/mesh.py::Mesh`` for the single-stream
-    sharded mode — the loop-closure re-solve runs factor-sharded over
-    ``mesh[pgo_axis]`` (``distributed/sharded_pgo.py``).  The JAX package
-    also row-shards the keyframe cloud blocks over the mesh; that placement
-    changes no result, and in the port the blocks stay on the state's device
-    (ROADMAP A-4b).  Independent multi-stream data parallelism is
+    sharded mode, as in the JAX package: the keyframe cloud blocks are
+    row-sharded over the mesh's shards (placed there if the state's are
+    not; ``graph/keyframes.py::RowShards``), so the submap, loop and
+    rebuild gathers read every shard, and the loop-closure re-solve runs
+    factor-sharded over it (``distributed/sharded_pgo.py``).  The placement
+    changes no result.  Independent multi-stream data parallelism is
     ``distributed/mesh.py::replay_sharded`` instead.
 
     Returns (new_state, outputs) where outputs carries:
@@ -96,24 +100,23 @@ def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
     with stage("projection", device):
         proj = image_projection(raw, cfg)
     return _step_projected(state, proj, cfg, device,
-                           _mapping_due(state.scan_index, cfg), mesh,
-                           pgo_axis)
+                           _mapping_due(state.scan_index, cfg), mesh)
 
 
 def _step_projected(state: SlamState, proj, cfg: LegoLoamConfig,
-                    device: torch.device, run_mapping: bool, mesh=None,
-                    pgo_axis: str = "pgo"):
+                    device: torch.device, run_mapping: bool, mesh=None):
     """:func:`slam_step` after stage 1: odometry, the mapping cycle when
     ``run_mapping``, fusion."""
     with stage("odometry", device):
         odo_state, assoc = odometry_mod.odometry_step(state.odo, proj, cfg)
 
     clouds = state.mapping.clouds
+    if mesh is not None:
+        clouds = keyframes.place_clouds(clouds, mesh)
     if run_mapping:
         with stage("mapping", device):
             meta, row, mapped, loop_diag = mapping_mod.mapping_step(
-                state.mapping.meta, clouds, assoc, cfg, mesh=mesh,
-                pgo_axis=pgo_axis)
+                state.mapping.meta, clouds, assoc, cfg, mesh=mesh)
             clouds = keyframes.apply_row(clouds, row)
     else:
         meta = state.mapping.meta
@@ -153,8 +156,7 @@ def _step_projected(state: SlamState, proj, cfg: LegoLoamConfig,
 
 
 def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
-                cfg: LegoLoamConfig, device: DeviceLike = None, mesh=None,
-                pgo_axis: str = "pgo"):
+                cfg: LegoLoamConfig, device: DeviceLike = None, mesh=None):
     """Resume replay from an existing :class:`SlamState`.
 
     The chunked long-sequence and resume entry point: the
@@ -163,8 +165,8 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
     whole-sequence :func:`replay` by construction (same step function).
 
     Args: batched scans (N, P*3) / (N, P) / (N,) from
-    ``io.npz_io.pack_sequence`` on the state's device; ``mesh`` and
-    ``pgo_axis`` as for :func:`slam_step`.
+    ``io.npz_io.pack_sequence`` on the state's device; ``mesh`` as for
+    :func:`slam_step` (a state whose blocks are whole is placed on it).
 
     Returns (final_state, outputs dict of stacked per-scan tensors).
     """
@@ -173,8 +175,7 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
     for i in range(xyz.shape[0]):
         raw = RawScan(xyz=xyz[i].reshape(-1, 3), valid=valid[i],
                       stamp=times[i])
-        state, out = slam_step(state, raw, cfg, device=device, mesh=mesh,
-                               pgo_axis=pgo_axis)
+        state, out = slam_step(state, raw, cfg, device=device, mesh=mesh)
         outs.append(out)
     if not outs:
         return state, {}
@@ -182,14 +183,14 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
 
 
 def replay(xyz: Tensor, valid: Tensor, times: Tensor, cfg: LegoLoamConfig,
-           device: DeviceLike = None, mesh=None, pgo_axis: str = "pgo"):
+           device: DeviceLike = None, mesh=None):
     """Offline whole-sequence replay from a fresh state on ``device``;
-    ``mesh`` and ``pgo_axis`` as for :func:`slam_step`.
+    ``mesh`` as for :func:`slam_step` (the blocks are made sharded).
 
     Returns (final_state, outputs dict of (N, …) tensors)."""
     device = resolve_device(device)
-    return replay_from(init_state(cfg, device), xyz, valid, times, cfg,
-                       device=device, mesh=mesh, pgo_axis=pgo_axis)
+    return replay_from(init_state(cfg, device, mesh), xyz, valid, times,
+                       cfg, device=device, mesh=mesh)
 
 
 def batched_replay(xyz: Tensor, valid: Tensor, times: Tensor,

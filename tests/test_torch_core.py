@@ -195,17 +195,20 @@ def test_entry_points_need_a_cuda_device_unless_told():
 
 
 def test_port_imports_no_jax():
-    """Source scan: nothing under the port's package, and not the chip
-    script, imports JAX, flax or the JAX package (the chip script may
-    only NAME files of it, in its ``replaces`` strings)."""
+    """Source scan: nothing under the port's package (Python, CUDA and host
+    C++ sources), and not the chip script, imports JAX, flax or the JAX
+    package (the chip script may only NAME files of it, in its
+    ``replaces`` strings)."""
     banned = [re.compile(p) for p in
               (r"import\s+jax", r"from\s+jax", r"flax",
                r"lego_loam_tpu(?!_torch)")]
     files = [os.path.join(REPO, "chip_smoke.py")]
+    sources = (".py", ".cu", ".cuh", ".cpp", ".h", ".hpp")
     for root, _, names in os.walk(os.path.join(REPO, "lego_loam_tpu_torch")):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith(sources)]
     assert len(files) > 20
+    assert any(f.endswith(".cpp") for f in files)
     for path in files:
         with open(path) as f:
             text = f.read()

@@ -31,6 +31,7 @@ from lego_loam_tpu_torch.core import se3 as tse3
 from lego_loam_tpu_torch.core.config import vlp16
 from lego_loam_tpu_torch.distributed import mesh as tmesh
 from lego_loam_tpu_torch.distributed import sharded_pgo
+from lego_loam_tpu_torch.graph import keyframes
 from lego_loam_tpu_torch.graph.posegraph import (add_factor, empty_graph,
                                                  optimize_poses)
 from lego_loam_tpu_torch.io.npz_io import pack_sequence
@@ -47,8 +48,8 @@ def _port(jgraph):
             to_torch("FactorGraph", g))
 
 
-def _cpu_mesh(n, axis="pgo"):
-    return tmesh.make_mesh(n, axis=axis, devices=["cpu"] * n)
+def _cpu_mesh(n):
+    return tmesh.make_mesh(n, devices=["cpu"] * n)
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +74,7 @@ def test_sharded_pgo_matches_jax_and_single_device(loop_graph,
     jsh, single = loop_solutions
     runs = sharded_pgo.solve_count
     out = tnp(sharded_pgo.optimize_poses_sharded(
-        *_port(loop_graph), _cpu_mesh(4), axis="pgo", gn_iters=8,
+        *_port(loop_graph), _cpu_mesh(4), gn_iters=8,
         pcg_iters=64))
     assert sharded_pgo.solve_count == runs + 1
     np.testing.assert_allclose(out, single, rtol=1e-4, atol=1e-4)
@@ -95,7 +96,7 @@ def test_sharded_pgo_pads_the_factor_axis(loop_graph, loop_solutions,
     assert not padded.valid[g.i.shape[0]:].any()
     assert (padded.weight[g.i.shape[0]:] == 0).all()
     out = tnp(sharded_pgo.optimize_poses_sharded(
-        poses, n, g, _cpu_mesh(shards), axis="pgo", gn_iters=8,
+        poses, n, g, _cpu_mesh(shards), gn_iters=8,
         pcg_iters=64))
     np.testing.assert_allclose(out, loop_solutions[1], rtol=1e-4, atol=1e-4)
 
@@ -132,7 +133,7 @@ def test_sharded_pcg_early_exit_stiff_chain():
     single, single_it = optimize_poses(poses, n, g, gn_iters=3, pcg_iters=64,
                                        return_iters=True)
     out, out_it = sharded_pgo.optimize_poses_sharded(
-        poses, n, g, _cpu_mesh(4), axis="pgo", gn_iters=3, pcg_iters=64,
+        poses, n, g, _cpu_mesh(4), gn_iters=3, pcg_iters=64,
         return_iters=True)
     out = tnp(out)
     np.testing.assert_allclose(out, tnp(single), rtol=1e-3, atol=5e-3)
@@ -146,10 +147,8 @@ def test_sharded_pcg_early_exit_stiff_chain():
 
 
 def test_mesh_checks():
-    mesh = _cpu_mesh(2, axis="pgo")
-    assert mesh.size == 2 and mesh.axis == "pgo"
-    with pytest.raises(ValueError, match="axis"):
-        mesh.check_axis("data")
+    mesh = _cpu_mesh(2)
+    assert mesh.size == 2 and mesh.devices == (torch.device("cpu"),) * 2
     with pytest.raises(ValueError, match="shards"):
         tmesh.make_mesh(3, devices=["cpu", "cpu"])
     if not torch.cuda.is_available():        # decided inside the test
@@ -177,7 +176,7 @@ def streams():
 def test_replay_sharded_matches_per_stream_replay(streams):
     per, (x, v, t) = streams
     states, outs = tmesh.replay_sharded(x, v, t, TCFG,
-                                        _cpu_mesh(2, axis="data"))
+                                        _cpu_mesh(2))
     assert len(states) == 4 and outs["fused"].shape == (4, 6, 6)
     for b in range(4):
         state, ref = tslam.replay(*per[b], TCFG, device="cpu")
@@ -192,9 +191,7 @@ def test_replay_sharded_raises_what_a_shard_raised(streams, monkeypatch):
     _, (x, v, t) = streams
     with pytest.raises(ValueError, match="divide"):
         tmesh.replay_sharded(x[:3], v[:3], t[:3], TCFG,
-                             _cpu_mesh(2, axis="data"))
-    with pytest.raises(ValueError, match="axis"):
-        tmesh.replay_sharded(x, v, t, TCFG, _cpu_mesh(2, axis="pgo"))
+                             _cpu_mesh(2))
 
     real = tmesh.batched_replay
 
@@ -205,7 +202,7 @@ def test_replay_sharded_raises_what_a_shard_raised(streams, monkeypatch):
     monkeypatch.setattr(tmesh, "batched_replay", failing)
     with pytest.raises(FloatingPointError, match="shard 1"):
         tmesh.replay_sharded(x[:, :1], v[:, :1], t[:, :1], TCFG,
-                             _cpu_mesh(2, axis="data"))
+                             _cpu_mesh(2))
 
 
 # a loop-closing lap (the geometry of tests/test_torch_cli.py's): every
@@ -222,11 +219,16 @@ _, LAP = small_cfgs(
 
 def test_replay_with_a_mesh_runs_the_sharded_solve():
     """``replay(mesh=…)``: the re-solve after the lap's loop closure (at scan
-    49) runs factor-sharded over 3 CPU shards (24 factor slots, 8 a shard);
+    49) runs factor-sharded over 3 CPU shards (24 factor slots, 8 a shard),
+    and the keyframe blocks are row-sharded over them (16 rows: 6 + 6 + 4,
+    10 written);
     the run equals the one without a mesh in its counts and within 1e-3 rad
-    / 1e-3 m in every fused pose (the sharded sums may round differently).
-    Both runs continue one state replayed to scan 45, each from its own
-    copy (``replay_from`` writes the keyframe blocks in place)."""
+    / 1e-3 m in every fused pose (the sharded sums may round differently),
+    and its blocks, reassembled, equal the other run's bit for bit (they
+    hold sensor-frame clouds, which no pose enters).  Both runs continue
+    one state replayed to scan 45, each from its own copy (``replay_from``
+    writes the keyframe blocks in place; a whole store is placed on the
+    mesh)."""
     scans, _, times = make_sequence(50, LAP, seed=33, noise=0.01,
                                     radius=2.2, speed=1.6)
     x, v, t = pack_sequence(scans, times, LAP, device="cpu")
@@ -242,7 +244,7 @@ def test_replay_with_a_mesh_runs_the_sharded_solve():
     plain_resolves = tmapping.resolve_count - resolves
     assert plain_resolves >= 1
     solves = sharded_pgo.solve_count
-    mesh = _cpu_mesh(3, axis="pgo")
+    mesh = _cpu_mesh(3)
     mstate, mouts = tail(mesh=mesh)
     assert sharded_pgo.solve_count - solves == plain_resolves
     for name in ("kf_count", "factor_count"):
@@ -251,10 +253,14 @@ def test_replay_with_a_mesh_runs_the_sharded_solve():
         > int(mstate.mapping.meta.kf_count) - 1          # a loop factor
     d = (mouts["fused"] - outs["fused"]).abs()
     assert float(d[:, :3].max()) < 1e-3 and float(d[:, 3:].max()) < 1e-3
-    meta = mstate.mapping.meta
-    with pytest.raises(ValueError, match="axis"):
-        sharded_pgo.optimize_poses_sharded(meta.kf_pose, meta.kf_count,
-                                           meta.graph, mesh, axis="data")
+    clouds = mstate.mapping.clouds
+    assert int(mstate.mapping.meta.kf_count) > 6      # rows past shard 0
+    for name, blk in vars(state.mapping.clouds).items():
+        sharded = getattr(clouds, name)
+        assert isinstance(sharded, keyframes.RowShards), name
+        assert [p.shape[0] for p in sharded.parts] == [6, 6, 4], name
+        assert torch.equal(keyframes.whole(sharded), blk), name
+    assert not isinstance(state.mapping.clouds.corner, keyframes.RowShards)
 
 
 def test_host_read_count_is_exact_under_threads():

@@ -1,8 +1,9 @@
 """The port's multi-process runtime: 2 worker processes x 2 local CPU
 shards join one ``torch.distributed`` process group (``gloo``) and run a
 cross-process reduction, the factor-sharded pose-graph solve over the
-4-shard global mesh, and a data-parallel replay of one stream a shard whose
-outputs are gathered.
+4-shard global mesh, a ``replay`` over that mesh with a keyframe row in
+every shard (so its gathers cross processes), and a data-parallel replay of
+one stream a shard whose outputs are gathered.
 
 Each worker is ``python -m lego_loam_tpu_torch.distributed.multihost`` in a
 process of its own, started without this test's pytest or JAX state, with
@@ -133,6 +134,25 @@ def test_gathered_replay_matches_per_stream_replay(results):
         np.testing.assert_allclose(fused[stream], ref, rtol=0, atol=1e-5,
                                    err_msg=f"stream {stream}")
     assert np.abs(fused[0] - fused[-1]).max() > 0.01
+
+
+def test_meshed_replay_equals_the_one_process_replay(results):
+    """``replay(mesh=global mesh)`` with 4 keyframe rows over the 4 shards:
+    one row a shard, so process 1 holds rows 2-3 and every gather goes
+    through the all-reduce; the fused poses and the reassembled blocks equal
+    a one-process replay without a mesh bit for bit."""
+    n = N_PROC * N_LOCAL
+    assert results["mesh_rows_per_shard"].tolist() == [1] * n
+    assert int(results["mesh_all_reduces"]) > 0
+    cfg = multihost.store_config(n)
+    scans, _, times = multihost.stream_sequence(0, n)
+    state, outs = replay(*pack_sequence(scans, times, cfg, device="cpu"),
+                         cfg, device="cpu")
+    assert int(state.mapping.meta.kf_count) == n
+    np.testing.assert_array_equal(results["mesh_fused"], tnp(outs["fused"]))
+    for name, blk in vars(state.mapping.clouds).items():
+        np.testing.assert_array_equal(results[f"mesh_{name}"], tnp(blk),
+                                      err_msg=name)
 
 
 def test_bench_worker_reports_a_rate(tmp_path):

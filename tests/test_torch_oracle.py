@@ -6,14 +6,11 @@ JAX package — ATE at most the oracle's × 1.15 + 0.02 m on the loop-off
 the sequences are short (8 scans with one mapping cycle for the copy, 20
 for the parity, which is ``test_parity_loop_off``'s first case)."""
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from lego_loam_tpu.eval import reference_oracle as jorc
 from lego_loam_tpu.io.synthetic import make_sequence
-from lego_loam_tpu_torch.core import config as tcfg
 from lego_loam_tpu_torch.core import se3
 from lego_loam_tpu_torch.eval import reference_oracle as torc
 from lego_loam_tpu_torch.eval.metrics import ate
@@ -21,21 +18,14 @@ from lego_loam_tpu_torch.io.npz_io import pack_sequence
 from lego_loam_tpu_torch.pipeline.slam import replay
 
 from tests.test_reference_parity import _fast_cfg
-
-
-def _port_cfg(jax_cfg):
-    """The port's config with every field of the JAX package's."""
-    return tcfg.LegoLoamConfig(**{
-        f.name: type(getattr(tcfg.LegoLoamConfig(), f.name))(
-            **dataclasses.asdict(getattr(jax_cfg, f.name)))
-        for f in dataclasses.fields(jax_cfg)})
+from torch_port_util import port_cfg
 
 
 def test_oracle_copy_equals_original():
     jcfg = _fast_cfg()
     scans, _gt, times = make_sequence(8, jcfg, seed=11, noise=0.01,
                                       radius=6.0, speed=1.2)
-    got = torc.run_oracle(scans, times, _port_cfg(jcfg))
+    got = torc.run_oracle(scans, times, port_cfg(jcfg))
     ref = jorc.run_oracle(scans, times, jcfg)
     assert got.shape == (8, 6) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, ref)
@@ -43,7 +33,7 @@ def test_oracle_copy_equals_original():
 
 def test_port_ate_at_most_the_oracles():
     jcfg = _fast_cfg()
-    cfg = _port_cfg(jcfg)
+    cfg = port_cfg(jcfg)
     n = 20
     scans, gt, times = make_sequence(n, jcfg, seed=11, noise=0.01,
                                      radius=6.0, speed=1.2)

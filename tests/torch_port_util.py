@@ -49,6 +49,14 @@ def small_cfgs(**overrides):
     return j, t
 
 
+def port_cfg(jax_cfg):
+    """The port's config with every field of the JAX package's."""
+    return tcfg.LegoLoamConfig(**{
+        f.name: type(getattr(tcfg.LegoLoamConfig(), f.name))(
+            **dataclasses.asdict(getattr(jax_cfg, f.name)))
+        for f in dataclasses.fields(jax_cfg)})
+
+
 def to_np(tree):
     """JAX pytree → same structure with NumPy leaves."""
     return jax.tree.map(np.asarray, tree)
