@@ -7,18 +7,15 @@ the sequences are short (8 scans with one mapping cycle for the copy, 20
 for the parity, which is ``test_parity_loop_off``'s first case)."""
 
 import numpy as np
-import torch
 
 from lego_loam_tpu.eval import reference_oracle as jorc
 from lego_loam_tpu.io.synthetic import make_sequence
-from lego_loam_tpu_torch.core import se3
 from lego_loam_tpu_torch.eval import reference_oracle as torc
-from lego_loam_tpu_torch.eval.metrics import ate
 from lego_loam_tpu_torch.io.npz_io import pack_sequence
 from lego_loam_tpu_torch.pipeline.slam import replay
 
 from tests.test_reference_parity import _fast_cfg
-from torch_port_util import port_cfg
+from torch_port_util import ate_vs_truth, port_cfg
 
 
 def test_oracle_copy_equals_original():
@@ -41,10 +38,8 @@ def test_port_ate_at_most_the_oracles():
     _, outs = replay(xyz, valid, t, cfg, device="cpu")
     fused = outs["fused"].numpy()
     oracle_fused = torc.run_oracle(scans, times, cfg)
-    g = torch.from_numpy(np.asarray(gt, np.float32))
-    gt_rel = se3.relative(g[0], g).numpy()
-    m_port = ate(fused[:-1], gt_rel[1:n], align=False)
-    m_orc = ate(oracle_fused[:-1], gt_rel[1:n], align=False)
+    m_port = ate_vs_truth(fused, gt)
+    m_orc = ate_vs_truth(oracle_fused, gt)
     assert np.isfinite(fused).all() and np.isfinite(oracle_fused).all()
     # the slack of tests/test_reference_parity.py::test_parity_loop_off
     assert m_port["rmse"] <= m_orc["rmse"] * 1.15 + 0.02, (m_port, m_orc)

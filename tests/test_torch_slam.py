@@ -15,11 +15,9 @@ from lego_loam_tpu.io.npz_io import pack_sequence as jpack_sequence
 from lego_loam_tpu.io.synthetic import make_sequence
 from lego_loam_tpu.pipeline import slam as jslam
 from lego_loam_tpu_torch.core import device as tdevice
-from lego_loam_tpu_torch.core import se3 as tse3
-from lego_loam_tpu_torch.eval.metrics import ate
 from lego_loam_tpu_torch.io.npz_io import pack_sequence
 from lego_loam_tpu_torch.pipeline import slam as tslam
-from torch_port_util import small_cfgs, tnp, to_np
+from torch_port_util import ate_vs_truth, small_cfgs, tnp, to_np
 
 # a keyframe needs 0.3 m of travel: 1.2 m/s * 0.5 s per mapping cycle = 0.6 m
 JCFG, TCFG = small_cfgs()
@@ -39,14 +37,6 @@ def torch_run(sequence):
     x, v, t = pack_sequence(scans, times, TCFG, device="cpu")
     state, outs = tslam.replay(x, v, t, TCFG, device="cpu")
     return (x, v, t), state, outs
-
-
-def _ate_vs_truth(fused, gt):
-    """ATE as the benchmark harness takes it: ground truth relative to its
-    first pose, estimate k against truth k+1, no alignment."""
-    g = torch.from_numpy(np.asarray(gt, np.float32))
-    gt_rel = tnp(tse3.relative(g[0], g))
-    return ate(fused[:-1], gt_rel[1:len(fused)], align=False)
 
 
 def test_replay_matches_jax(sequence, torch_run):
@@ -80,8 +70,8 @@ def test_replay_matches_jax(sequence, torch_run):
                                    err_msg=name)
     # the second cycle really matched against the first keyframe
     assert np.abs(jouts["mapped"][-1] - jouts["odom"][9]).max() > 0
-    a, ja = _ate_vs_truth(tnp(outs["fused"]), gt), \
-        _ate_vs_truth(jouts["fused"], gt)
+    a, ja = ate_vs_truth(tnp(outs["fused"]), gt), \
+        ate_vs_truth(jouts["fused"], gt)
     assert abs(a["rmse"] - ja["rmse"]) < 0.05
     assert a["rmse"] < 1.0      # coarse at this width on both sides
 

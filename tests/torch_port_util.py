@@ -1,7 +1,9 @@
 """Shared helpers of the ``test_torch_*`` files: the small configuration on
-both sides, NumPy bridges between the JAX package and the PyTorch port."""
+both sides, NumPy bridges between the JAX package and the PyTorch port, and
+the port's CPU replay of the JAX package's loop-lap sequences."""
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -10,6 +12,8 @@ import torch
 from lego_loam_tpu.core import config as jcfg
 from lego_loam_tpu_torch import convert
 from lego_loam_tpu_torch.core import config as tcfg
+from lego_loam_tpu_torch.core import se3 as tse3
+from lego_loam_tpu_torch.eval.metrics import ate
 
 # The suite runs several worker processes on few cores, and these shapes are
 # too small to gain from intra-op threads: one thread per worker keeps the
@@ -69,3 +73,63 @@ def to_torch(kind, jax_tree):
 
 def tnp(x):
     return x.detach().cpu().numpy()
+
+
+def gt_relative(gt):
+    """Ground truth poses (N, 6) relative to the first, as NumPy."""
+    g = torch.from_numpy(np.asarray(gt, np.float32))
+    return tnp(tse3.relative(g[0], g))
+
+
+def ate_vs_truth(fused, gt):
+    """ATE as the benchmark harness and the JAX package's tests take it:
+    estimate k against relative truth k+1, no alignment."""
+    return ate(fused[:-1], gt_relative(gt)[1:len(fused)], align=False)
+
+
+# The loop laps of the JAX package's tests, on ``small_loop_cfg``: scans,
+# then ``make_sequence``'s keywords.  seed 33 is ``test_loop_e2e._loop_run``
+# (~1.33 laps), seed 55 ``test_parity_loop_on_second_seed`` (1.5 laps).
+LAPS = {"seed33-r2.2": (110, dict(seed=33, radius=2.2, speed=1.6)),
+        "seed55-r1.7": (80, dict(seed=55, radius=1.7, speed=2.0))}
+
+
+@functools.lru_cache(maxsize=2)
+def _sequence(n, seq):
+    """``make_sequence(n, small_loop_cfg(), noise=0.01, **dict(seq))``: the
+    scans, times and ground truth, and the scans packed for the port."""
+    from lego_loam_tpu.io.synthetic import make_sequence
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from tests.test_loop_e2e import small_loop_cfg
+
+    jc = small_loop_cfg()
+    scans, gt, times = make_sequence(n, jc, noise=0.01, **dict(seq))
+    packed = pack_sequence(scans, times, port_cfg(jc), device="cpu")
+    return (scans, gt, times), packed
+
+
+def lap_sequence(n, seq):
+    """(scans, ground truth, times) of ``make_sequence(n, small_loop_cfg(),
+    noise=0.01, **seq)``."""
+    return _sequence(n, tuple(sorted(seq.items())))[0]
+
+
+def replay_drive(n, seq, **mapping):
+    """(final state, outputs with NumPy leaves, ground truth) of the port's
+    CPU replay of ``make_sequence(n, small_loop_cfg(), noise=0.01, **seq)``;
+    ``mapping`` overrides MappingConfig fields.  These replays are the port's
+    longest tests, so they take two intra-op threads (one thread put the
+    seed-33 lap over a minute); the worker's setting is restored after."""
+    from lego_loam_tpu_torch.pipeline.slam import replay
+    from tests.test_loop_e2e import small_loop_cfg
+
+    cfg = port_cfg(small_loop_cfg())
+    cfg = cfg.replace(mapping=dataclasses.replace(cfg.mapping, **mapping))
+    (_, gt, _), (xyz, valid, t) = _sequence(n, tuple(sorted(seq.items())))
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        final, outs = replay(xyz, valid, t, cfg, device="cpu")
+    finally:
+        torch.set_num_threads(before)
+    return final, {k: v.numpy() for k, v in outs.items()}, gt
