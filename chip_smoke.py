@@ -27,6 +27,9 @@ processes from the start, beside the kernel phases.  It
    run,
 6. ``resolve``: one pose-graph re-solve and grid rebuild on the loop run's
    final graph, timed; the solve must not raise the graph's residual,
+   ``stage2_graphs``: the loop lap's first 100 scans through stage 2 alone,
+   its chains replayed from CUDA graphs (``core/graphs.py``) and called
+   eagerly, bit-equal scan by scan, with the runner's captures and replays,
    ``loop_parity``: a small loop-closing lap twice on the card and once on
    the CPU — the two card runs bit-equal in every output and state field
    (``determinism``), card and CPU keyframe and loop-factor counts equal,
@@ -1078,6 +1081,96 @@ def loop_phase(lap, dev):
         shapes, icp_iters, with_candidate)
     assert sum(shapes.values()) == launches["knn5"]
     return launches, state, outs, result
+
+
+STAGE2_SCANS = 100
+
+
+def tensors_of(tree) -> list:
+    """The tensors of a port container (nested dataclasses), in field
+    order; nothing for ``None``."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in tensors_of(getattr(tree, f.name))]
+    return []
+
+
+def stage2_graphs_phase(lap, dev):
+    """Stage 2 as the main path runs it, its chains replayed from CUDA
+    graphs (``core/graphs.py``), against the same chains called eagerly
+    (``graphs.run`` patched to a plain call): the loop lap's first
+    ``STAGE2_SCANS`` scans from a fresh state with ``vlp16()``, stage 1 once
+    a scan for both.  After every scan θ (``two_step_odometry`` on the
+    step's inputs), the new state and the ``AssociationOut`` must be
+    bit-equal (asserted); captures and replays a scan are the runner's
+    counts, and each side's ms a scan is timed with a synchronisation; the
+    replays and times are the steps' own (θ's solve is left out), the
+    captures the phase's."""
+    from unittest import mock
+
+    from lego_loam_tpu_torch.core import graphs
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.core.types import RawScan
+    from lego_loam_tpu_torch.frontend.features import extract_features
+    from lego_loam_tpu_torch.frontend.segmentation import image_projection
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.pipeline import odometry
+    from lego_loam_tpu_torch.solve.odometry import two_step_odometry
+
+    scans, _, times = lap
+    cfg = vlp16()
+    n = min(STAGE2_SCANS, len(scans))
+    x, v, t = pack_sequence(scans[:n], times[:n], cfg, device=dev)
+    sides = {"graphs": contextlib.nullcontext,
+             "eager": lambda: mock.patch.object(
+                 graphs, "run", lambda fn, *args: fn(*args))}
+    states = {side: odometry.init_state(cfg, dev) for side in sides}
+    seconds = dict.fromkeys(sides, 0.0)
+    c0 = graphs.capture_count()
+    captures_by_scan, replays_by_scan, differing = [], [], []
+    for i in range(n):
+        proj = image_projection(
+            RawScan(xyz=x[i].reshape(-1, 3), valid=v[i], stamp=t[i]), cfg)
+        got = {}
+        for side, context in sides.items():
+            state = states[side]
+            with context():
+                theta = None
+                if i:
+                    feats = graphs.owned(graphs.run(
+                        extract_features, proj.segmented, cfg))
+                    theta = two_step_odometry(
+                        state.transform_cur, feats.sharp, feats.flat,
+                        state.last_corner, state.last_surf, cfg)
+                torch.cuda.synchronize()
+                c, r = graphs.capture_count(), graphs.replay_count()
+                t0 = time.perf_counter()
+                states[side], out = odometry.odometry_step(state, proj, cfg)
+                torch.cuda.synchronize()
+                seconds[side] += time.perf_counter() - t0
+                if side == "graphs":
+                    captures_by_scan.append(graphs.capture_count() - c)
+                    replays_by_scan.append(graphs.replay_count() - r)
+            got[side] = {"theta": theta, "state": states[side], "out": out}
+        for part in ("theta", "state", "out"):
+            a, b = (tensors_of(got[side][part]) for side in sides)
+            differing += [f"scan {i} {part} leaf {k}"
+                          for k, (p, q) in enumerate(zip(a, b))
+                          if not torch.equal(p, q)]
+    report = {"phase": "stage2_graphs", "scans": n,
+              "config": "vlp16() unchanged, odometry_step alone",
+              "differing": differing[:20], "n_differing": len(differing),
+              "captures": graphs.capture_count() - c0,
+              "captures_after_scan_10": sum(captures_by_scan[10:]),
+              "replays_per_scan": sum(replays_by_scan) / n,
+              "ms_per_scan": {side: 1e3 * s / n
+                              for side, s in seconds.items()}}
+    emit(report)
+    if differing:
+        raise AssertionError(f"stage 2 replayed from graphs differs from the "
+                             f"eager chain: {differing[:5]}")
 
 
 def resolve_phase(state, dev):
@@ -2699,6 +2792,7 @@ def main() -> int:
     lap = data.pop("lap")
     paths["loop"], state, loop_outs, loop_result = loop_phase(lap, dev)
     resolve_phase(state, dev)
+    stage2_graphs_phase(lap, dev)
     loop_meta = state.mapping.meta
     # what the full lap's replay(mesh=…) in `sharded` is held to, off the card
     loop_run = {"tree": convert.to_numpy_tree(state),

@@ -4,14 +4,22 @@
 The reference's FA thread state (last clouds, KD-trees, transformCur,
 transformSum) is an explicit ``OdometryState`` threaded through the replay
 loop; a step returns a new state and never writes into the one it was given.
+
+On a CUDA card the step's fixed-shape chains replay from CUDA graphs
+(``core/graphs.py``): feature extraction, the searches and each
+Gauss-Newton iteration's two halves (``solve/odometry.py``), and the tail
+after the solve (:func:`_integrate`).  Their outputs are graph buffers that
+the next scan overwrites (the next stream's, in ``batched_replay``), so the
+state and ``AssociationOut`` a step returns are copies that share storage
+with nothing else.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core import se3
-from ..core.config import LegoLoamConfig
+from ..core import graphs, se3
+from ..core.config import FeatureConfig, LegoLoamConfig
 from ..core.device import DeviceLike, host_bool, resolve_device
 from ..core.types import (AssociationOut, FeatureCloud, FeatureSet,
                           OdometryState, ProjectionOut)
@@ -48,6 +56,22 @@ def _to_end(theta: Tensor, fc: FeatureCloud) -> FeatureCloud:
     return fc.replace(xyz=torch.where(fc.valid[:, None], xyz, 0.0))
 
 
+def _integrate(theta_star: Tensor, transform_cur: Tensor, odom: Tensor,
+               less_sharp: FeatureCloud, less_flat: FeatureCloud,
+               f: FeatureConfig):
+    """The step's tail after the solve: the physical trust region and the
+    cross-frame under-relaxation (``FeatureConfig.odom_max_delta_*`` /
+    ``odom_relax``), the integrated pose, and the clouds de-skewed to the
+    sweep's end.  Returns (θ, odom, last_corner, last_surf)."""
+    limit = graphs.constant([f.odom_max_delta_rot] * 3
+                            + [f.odom_max_delta_trans] * 3,
+                            torch.float32, theta_star.device)
+    delta = torch.clamp(theta_star - transform_cur, -limit, limit)
+    theta = se3.normalize_angles(transform_cur + f.odom_relax * delta)
+    odom = se3.normalize_angles(se3.compose(odom, theta))
+    return theta, odom, _to_end(theta, less_sharp), _to_end(theta, less_flat)
+
+
 def odometry_step(state: OdometryState, proj: ProjectionOut,
                   cfg: LegoLoamConfig):
     """One scan through feature extraction + two-step GN odometry.
@@ -56,33 +80,23 @@ def odometry_step(state: OdometryState, proj: ProjectionOut,
     integrated odometry pose and the end-frame feature clouds that feed
     mapping every ``mapping_frequency_divider`` scans (:1432-1448).
     """
-    feats: FeatureSet = extract_features(proj.segmented, cfg)
+    feats: FeatureSet = graphs.run(extract_features, proj.segmented, cfg)
 
     if not host_bool(state.initialized):
         # checkSystemInitialization (:1181-1209)
-        new_state = state.replace(
-            initialized=torch.ones_like(state.initialized),
-            last_corner=feats.less_sharp,
-            last_surf=feats.less_flat)
+        theta, odom = state.transform_cur, state.odom
+        corner, surf = feats.less_sharp, feats.less_flat
     else:
         theta_star = two_step_odometry(
             state.transform_cur, feats.sharp, feats.flat,
             state.last_corner, state.last_surf, cfg)
-        # physical trust region + cross-frame under-relaxation
-        # (FeatureConfig.odom_max_delta_* / odom_relax)
-        f = cfg.feature
-        limit = torch.tensor([f.odom_max_delta_rot] * 3
-                             + [f.odom_max_delta_trans] * 3,
-                             dtype=torch.float32, device=theta_star.device)
-        delta = torch.clamp(theta_star - state.transform_cur, -limit, limit)
-        theta = se3.normalize_angles(
-            state.transform_cur + f.odom_relax * delta)
-        odom = se3.normalize_angles(se3.compose(state.odom, theta))
-        new_state = state.replace(
-            transform_cur=theta,
-            odom=odom,
-            last_corner=_to_end(theta, feats.less_sharp),
-            last_surf=_to_end(theta, feats.less_flat))
+        theta, odom, corner, surf = graphs.run(
+            _integrate, theta_star, state.transform_cur, state.odom,
+            feats.less_sharp, feats.less_flat, cfg.feature)
+    theta, odom, corner, surf = graphs.owned((theta, odom, corner, surf))
+    new_state = OdometryState(
+        initialized=torch.ones_like(state.initialized),
+        transform_cur=theta, odom=odom, last_corner=corner, last_surf=surf)
 
     out = AssociationOut(
         corner_xyz=new_state.last_corner.xyz,

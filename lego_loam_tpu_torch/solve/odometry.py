@@ -45,10 +45,10 @@ import math
 
 import torch
 
-from ..core import se3
-from ..core.config import LegoLoamConfig
+from ..core import graphs, se3
+from ..core.config import FeatureConfig, LegoLoamConfig
 from ..core.device import host_bool
-from ..core.types import FeatureCloud
+from ..core.types import Container, FeatureCloud
 from ..match import banded
 from ..match.bruteforce import (masked_nn, nn_in_ring_window,
                                 pairwise_sqdist)
@@ -89,7 +89,7 @@ def _deskew_jac(theta: Tensor, xyz: Tensor, s: Tensor, free) -> Tensor:
 
 
 @dataclasses.dataclass
-class _Corr:
+class _Corr(Container):
     """Correspondence GEOMETRY carried across GN iterations.
 
     The matched plane/line lives in the (static) last frame, so it is
@@ -110,8 +110,14 @@ def _search_surf(theta, flat: FeatureCloud, last: FeatureCloud,
                  cfg: LegoLoamConfig) -> _Corr:
     """3-point plane correspondence (``findCorrespondingSurfFeatures``,
     ``featureAssociation.cpp:640-733``): 1-NN j1, nearest same-or-lower
-    ring j2, nearest higher ring j3, all within ±2.5 rings and 5 m."""
-    f = cfg.feature
+    ring j2, nearest higher ring j3, all within ±2.5 rings and 5 m.
+    Replayed as one graph (:func:`_surf_correspondences`); the result is the
+    graph's buffers until the next search of this shape."""
+    return graphs.run(_surf_correspondences, theta, flat, last, cfg.feature)
+
+
+def _surf_correspondences(theta, flat: FeatureCloud, last: FeatureCloud,
+                          f: FeatureConfig) -> _Corr:
     max_d2 = f.nearest_feature_search_dist ** 2
     x = deskew_to_start(theta, flat.xyz, flat.rel_time)
     d2 = pairwise_sqdist(x, last.xyz)
@@ -233,8 +239,14 @@ def _search_corner(theta, sharp: FeatureCloud, last: FeatureCloud,
                    cfg: LegoLoamConfig) -> _Corr:
     """2-point line correspondence (``findCorrespondingCornerFeatures``,
     ``featureAssociation.cpp:503-569``): 1-NN j1 + nearest point in a
-    *different* ring within ±2.5."""
-    f = cfg.feature
+    *different* ring within ±2.5.  Replayed as one graph, as
+    :func:`_search_surf` is."""
+    return graphs.run(_corner_correspondences, theta, sharp, last,
+                      cfg.feature)
+
+
+def _corner_correspondences(theta, sharp: FeatureCloud, last: FeatureCloud,
+                            f: FeatureConfig) -> _Corr:
     max_d2 = f.nearest_feature_search_dist ** 2
     x = deskew_to_start(theta, sharp.xyz, sharp.rel_time)
     d2 = pairwise_sqdist(x, last.xyz)
@@ -289,10 +301,10 @@ def _corner_dist(theta, sharp: FeatureCloud, corr: _Corr, free):
     return r, torch.sqrt(torch.sum(r * r, dim=-1)), x, J
 
 
-def _weights(d: Tensor, x: Tensor, it: int, kind: str) -> Tensor:
+def _weights(d: Tensor, x: Tensor, late: bool, kind: str) -> Tensor:
     """Robust weights (:607-612 corner, :761-766 surf): down-weight by
-    residual magnitude after iteration 5, reject below 0.1."""
-    if it >= 5:
+    residual magnitude from iteration 5 on (``late``), reject below 0.1."""
+    if late:
         if kind == "surf":
             rng = torch.sqrt(torch.sum(x * x, dim=-1))
             w = 1.0 - 1.8 * torch.abs(d) / torch.sqrt(torch.sqrt(
@@ -304,62 +316,86 @@ def _weights(d: Tensor, x: Tensor, it: int, kind: str) -> Tensor:
     return torch.where((w > 0.1) & (torch.abs(d) > 1e-12), w, 0.0)
 
 
+_EYE3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
+def _normal_equations(theta: Tensor, query: FeatureCloud, corr: _Corr,
+                      free, dist_fn, kind: str, late: bool,
+                      f: FeatureConfig):
+    """One GN iteration's linearisation, from the residuals through the
+    damped normal equations: (H, H_damped, g, n_sel)."""
+    r, d_abs, x, J = dist_fn(theta, query, corr, free)
+    w = _weights(d_abs, x, late, kind) * corr.ok.to(torch.float32)
+    n_sel = torch.sum(w > 0.0)
+    D = r.shape[-1]
+    w_rows = w[:, None].expand(-1, D).reshape(-1)         # weight per row
+
+    Jw = J.reshape(-1, len(free)) * w_rows[:, None]       # (N*D, 3)
+    H = Jw.T @ Jw
+    g = Jw.T @ (w_rows * r.reshape(-1))
+    H_damped = H + f.odom_lm_lambda * torch.diag(torch.diag(H)) \
+        + 1e-9 * graphs.constant(_EYE3, theta.dtype, theta.device)
+    return H, H_damped, g, n_sel
+
+
+def _degeneracy(H: Tensor, f: FeatureConfig):
+    """Degeneracy guard of the first iteration (:869-898): the projection
+    P onto the well-constrained directions of H, and whether any is not."""
+    eye3 = graphs.constant(_EYE3, H.dtype, H.device)
+    # a non-finite H (its step is zeroed below) must not make the
+    # eigensolver raise
+    evals, V = torch.linalg.eigh(torch.where(torch.isfinite(H).all(), H, eye3))
+    keep = evals >= f.degeneracy_eig_threshold
+    P = (V * keep[None, :].to(V.dtype)) @ V.T
+    return P, ~torch.all(keep)
+
+
+def _gn_update(theta: Tensor, H_damped: Tensor, g: Tensor, P: Tensor,
+               degenerate: Tensor, n_sel: Tensor, free, f: FeatureConfig):
+    """The step: the 3x3 solve, projected, zeroed where unusable, applied
+    to θ[free]; returns (θ, converged)."""
+    free_idx = graphs.constant(free, torch.int64, theta.device)
+    rot_mask = free_idx < 3
+    sol = torch.linalg.solve_ex(H_damped, g[:, None],
+                                check_errors=False).result[:, 0]
+    dx = -f.odom_step_scale * sol
+    dx = torch.where(degenerate, P @ dx, dx)
+    dx = torch.where(torch.isnan(dx) | (n_sel < f.min_selected),
+                     torch.zeros_like(dx), dx)
+
+    theta = theta.index_add(0, free_idx, dx)
+    # convergence: ΔR < 0.1 deg, ΔT < 0.1 cm (:912-920); rotation
+    # components are those of free_idx < 3
+    d_rot = torch.sqrt(torch.sum(torch.where(rot_mask, dx, 0.0) ** 2))
+    d_tr = torch.sqrt(torch.sum(torch.where(rot_mask, 0.0, dx) ** 2))
+    converged = ((d_rot * (180.0 / math.pi) < f.delta_r_converged_deg)
+                 & (d_tr * 100.0 < f.delta_t_converged_cm)
+                 & (n_sel >= f.min_selected))
+    return theta, converged
+
+
 def _gn_phase(theta0: Tensor, free, query: FeatureCloud,
               last: FeatureCloud, search_fn, dist_fn, kind: str,
               max_iters: int, cfg: LegoLoamConfig) -> Tensor:
     """One phase (surf or corner) of the two-step solver: masked GN
     iterations with cached correspondences, until converged or
-    ``max_iters``."""
+    ``max_iters``.  An iteration is two replayed chains, the normal
+    equations and the update; at iteration 0 the eager ``eigh`` (it checks
+    its errors on the host) runs between them.  The convergence flag is
+    read on the host after the second."""
     f = cfg.feature
-    dev = theta0.device
-    free_idx = torch.tensor(free, dtype=torch.int64, device=dev)
-    rot_mask = free_idx < 3
-    eye3 = torch.eye(3, dtype=theta0.dtype, device=dev)
-
     theta = theta0
     corr = None
-    P = eye3
-    degenerate = torch.zeros((), dtype=torch.bool, device=dev)
     for it in range(max_iters):
         if it % 5 == 0:
             corr = search_fn(theta, query, last, cfg)
-
-        r, d_abs, x, J = dist_fn(theta, query, corr, free)
-        w = _weights(d_abs, x, it, kind) * corr.ok.to(torch.float32)
-        n_sel = torch.sum(w > 0.0)
-        D = r.shape[-1]
-        w_rows = torch.repeat_interleave(w, D)                # weight per row
-
-        Jw = J.reshape(-1, len(free)) * w_rows[:, None]       # (N*D, 3)
-        H = Jw.T @ Jw
-        g = Jw.T @ (w_rows * r.reshape(-1))
-        H_damped = H + f.odom_lm_lambda * torch.diag(torch.diag(H)) \
-            + 1e-9 * eye3
-        sol = torch.linalg.solve_ex(H_damped, g[:, None],
-                                    check_errors=False).result[:, 0]
-        dx = -f.odom_step_scale * sol
-
-        # degeneracy guard on the first iteration (:869-898)
+        H, H_damped, g, n_sel = graphs.run(
+            _normal_equations, theta, query, corr, free, dist_fn, kind,
+            it >= 5, f)
         if it == 0:
-            # a non-finite H (its step is zeroed below) must not make the
-            # eigensolver raise
-            evals, V = torch.linalg.eigh(
-                torch.where(torch.isfinite(H).all(), H, eye3))
-            keep = evals >= f.degeneracy_eig_threshold
-            P = (V * keep[None, :].to(V.dtype)) @ V.T
-            degenerate = ~torch.all(keep)
-        dx = torch.where(degenerate, P @ dx, dx)
-        dx = torch.where(torch.isnan(dx) | (n_sel < f.min_selected),
-                         torch.zeros_like(dx), dx)
-
-        theta = theta.index_add(0, free_idx, dx)
-        # convergence: ΔR < 0.1 deg, ΔT < 0.1 cm (:912-920); rotation
-        # components are those of free_idx < 3
-        d_rot = torch.sqrt(torch.sum(torch.where(rot_mask, dx, 0.0) ** 2))
-        d_tr = torch.sqrt(torch.sum(torch.where(rot_mask, 0.0, dx) ** 2))
-        converged = ((d_rot * (180.0 / math.pi) < f.delta_r_converged_deg)
-                     & (d_tr * 100.0 < f.delta_t_converged_cm)
-                     & (n_sel >= f.min_selected))
+            P, degenerate = _degeneracy(H, f)
+        theta, converged = graphs.run(_gn_update, theta, H_damped, g, P,
+                                      degenerate, n_sel, free, f)
         if host_bool(converged):
             break
     return theta
@@ -406,4 +442,5 @@ def two_step_odometry(theta0: Tensor, sharp: FeatureCloud,
     th = _gn_phase(th, _CORNER_FREE, sharp, last_corner,
                    search_corner, _corner_dist, "corner",
                    f.odom_corner_iters, cfg)
-    return th
+    # the last update's graph buffer: the caller's own copy
+    return graphs.owned(th)

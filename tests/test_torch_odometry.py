@@ -5,6 +5,10 @@ Both sides get the same JAX-made feature clouds.  θ agrees to 1e-4 rad /
 hundreds of residual rows are taken in another order and the Jacobian is
 closed-form here and traced there."""
 
+import os
+import sys
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +23,12 @@ from lego_loam_tpu.io.npz_io import pack_raw_scan as jpack
 from lego_loam_tpu.io.synthetic import make_sequence
 from lego_loam_tpu.pipeline import odometry as jodo
 from lego_loam_tpu.solve import odometry as jsolve
+from lego_loam_tpu_torch.core import graphs
 from lego_loam_tpu_torch.core.types import FeatureCloud
+from lego_loam_tpu_torch.frontend import features as tfeat
+from lego_loam_tpu_torch.frontend import segmentation as tseg
+from lego_loam_tpu_torch.io import npz_io as tnpz
+from lego_loam_tpu_torch.io import synthetic as tsynthetic
 from lego_loam_tpu_torch.pipeline import odometry as todo
 from lego_loam_tpu_torch.solve import odometry as tsolve
 from torch_port_util import small_cfgs, tnp, to_np, to_torch
@@ -192,3 +201,200 @@ def test_odometry_skips_thin_clouds_and_refuses_banded():
                            for k in ("xyz", "ring", "rel_time", "valid")})
           for c in clouds], jbanded)
     np.testing.assert_array_equal(tnp(theta), np.asarray(ref))
+
+
+# ---------------------------------------------------------------------------
+# The step as chains replayed from CUDA graphs (core/graphs.py): the same
+# bits, and no result that aliases another's buffers
+# ---------------------------------------------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "data",
+                      "odometry_four_steps.npz")
+_CLOUD_FIELDS = ("xyz", "ring", "rel_time", "valid")
+
+
+def _four_steps():
+    """Four consecutive ``odometry_step`` calls on the CPU from a fresh
+    state, over the port's own small sequence: θ of each solved step
+    (``two_step_odometry`` on the step's inputs) and the state after each.
+    Returns {name: array}."""
+    scans, _, times = tsynthetic.make_sequence(4, TCFG, seed=4, noise=0.01,
+                                               speed=1.2)
+    state = todo.init_state(TCFG, "cpu")
+    out = {}
+    for k, (pts, t) in enumerate(zip(scans, times)):
+        raw = tnpz.pack_raw_scan(pts, float(t), TCFG.pipeline.max_points,
+                                 "cpu")
+        proj = tseg.image_projection(raw, TCFG)
+        if k:
+            feats = tfeat.extract_features(proj.segmented, TCFG)
+            out[f"theta_{k}"] = tsolve.two_step_odometry(
+                state.transform_cur, feats.sharp, feats.flat,
+                state.last_corner, state.last_surf, TCFG)
+        state, _ = todo.odometry_step(state, proj, TCFG)
+        out[f"transform_cur_{k}"] = state.transform_cur
+        out[f"odom_{k}"] = state.odom
+        for name in ("last_corner", "last_surf"):
+            for field in _CLOUD_FIELDS:
+                out[f"{name}.{field}_{k}"] = getattr(getattr(state, name),
+                                                     field)
+    return {k: tnp(v) for k, v in out.items()}
+
+
+def test_odometry_steps_reproduce_the_golden_bits():
+    """The step split into replayable chains computes what the unsplit
+    step computed, bit for bit (``tests/data/odometry_four_steps.npz`` was
+    written by :func:`_four_steps` before the split)."""
+    got = _four_steps()
+    with np.load(GOLDEN) as ref:
+        assert sorted(ref.files) == sorted(got)
+        for name in ref.files:
+            np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+
+
+def _leaves(tree):
+    leaves = []
+    graphs._flatten(tree, leaves)
+    return leaves
+
+
+def _storages(tree):
+    return {t.untyped_storage().data_ptr() for t in _leaves(tree)
+            if t.numel()}
+
+
+@pytest.fixture
+def replayed_on_cpu(monkeypatch):
+    """``core/graphs.py``'s graph path on the CPU: a chain is 'captured'
+    once per key, and each 'replay' writes into the buffers of the first
+    call's outputs, as a CUDA graph's replay writes into its pool (an output
+    that is an input stays the static input, rewritten by the next copy)."""
+    def record(fn, spec, static):
+        outputs = fn(*graphs._unflatten(spec, iter(static)))
+
+        def replay():
+            fresh = fn(*graphs._unflatten(spec, iter(static)))
+            for dst, src in zip(_leaves(outputs), _leaves(fresh)):
+                dst.copy_(src)
+        return replay, outputs
+
+    monkeypatch.setattr(graphs, "_record", record)
+    monkeypatch.setattr(graphs, "_replayable", lambda t: True)
+    monkeypatch.setattr(graphs._LOCAL, "entries", {}, raising=False)
+    return graphs._entries()
+
+
+def test_replayed_steps_keep_the_bits_and_own_their_results(replayed_on_cpu):
+    """Through the graph path the four steps give the golden bits; every
+    step's state and ``AssociationOut`` share storage neither with the
+    state passed in nor with any graph's buffers, and a later step (which
+    replays the same graphs) leaves an earlier step's results as they
+    were."""
+    with np.load(GOLDEN) as ref:
+        golden = {k: ref[k] for k in ref.files}
+    got = _four_steps()
+    for name, want in golden.items():
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
+    # the chains of a solved step each captured once: features, two
+    # searches, two halves of an iteration a phase, the tail
+    assert len(replayed_on_cpu) >= 8
+
+    scans, _, times = tsynthetic.make_sequence(4, TCFG, seed=4, noise=0.01,
+                                               speed=1.2)
+    state = todo.init_state(TCFG, "cpu")
+    kept = []
+    for pts, t in zip(scans, times):
+        raw = tnpz.pack_raw_scan(pts, float(t), TCFG.pipeline.max_points,
+                                 "cpu")
+        proj = tseg.image_projection(raw, TCFG)
+        new_state, out = todo.odometry_step(state, proj, TCFG)
+        buffers = set()
+        for entry in replayed_on_cpu.values():
+            buffers |= _storages(entry.inputs) | _storages(entry.outputs)
+        mine = _storages((new_state, out)) - _storages(proj)
+        assert not mine & _storages(state)
+        assert not mine & buffers
+        kept.append(((new_state, out), graphs.owned((new_state, out))))
+        state = new_state
+    for result, copy in kept:
+        for a, b in zip(_leaves(result), _leaves(copy)):
+            assert torch.equal(a, b)
+
+
+def test_graph_key_separates_shapes_devices_and_threads(replayed_on_cpu):
+    def double(x, scale):
+        return x * scale
+
+    c0, r0 = graphs.capture_count(), graphs.replay_count()
+    a = graphs.run(double, torch.ones(3), 2.0)
+    b = graphs.run(double, torch.ones(4), 2.0)
+    assert graphs.capture_count() - c0 == 2
+    graphs.run(double, torch.full((3,), 5.0), 2.0)
+    assert graphs.capture_count() - c0 == 2
+    assert graphs.replay_count() - r0 == 3
+    # the replay wrote the buffers the first call returned
+    assert torch.equal(a, torch.full((3,), 10.0)) and b.shape == (4,)
+    # a constant of the key is part of it
+    graphs.run(double, torch.ones(3), 3.0)
+    assert graphs.capture_count() - c0 == 3
+    assert len(replayed_on_cpu) == 3
+
+    # another thread keeps entries of its own
+    seen = []
+    worker = threading.Thread(target=lambda: seen.append(
+        (graphs.run(double, torch.ones(3), 2.0), len(graphs._entries()))))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive() and seen[0][1] == 1
+    assert graphs.capture_count() - c0 == 4
+    assert len(replayed_on_cpu) == 3
+
+    # the device is part of the key
+    leaves = [torch.ones(3)]
+    spec = graphs._flatten((leaves[0], 2.0), [])
+    assert (graphs._key(double, spec, leaves)
+            != graphs._key(double, spec, [torch.ones(3, device="meta")]))
+
+
+def test_cpu_tensors_never_capture():
+    def double(x):
+        return x * 2.0
+
+    c0, r0 = graphs.capture_count(), graphs.replay_count()
+    n = len(graphs._entries())
+    x = torch.arange(4.0)
+    y = graphs.run(double, x)
+    z = graphs.run(double, x)
+    assert torch.equal(y, x * 2.0) and y is not z
+    assert (graphs.capture_count(), graphs.replay_count()) == (c0, r0)
+    assert len(graphs._entries()) == n
+
+
+def test_counts_and_constants_hold_under_threads(replayed_on_cpu):
+    """Eight threads capture and replay at once, switching often: the
+    counts are exact, and every thread reads the one cached constant."""
+    def shift(x):
+        return x + graphs.constant((1.0, 2.0, 3.0), torch.float32, x.device)
+
+    c0, r0 = graphs.capture_count(), graphs.replay_count()
+    results = []
+
+    def work():
+        for _ in range(50):
+            results.append(graphs.run(shift, torch.zeros(3)).clone())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert graphs.capture_count() - c0 == 8
+    assert graphs.replay_count() - r0 == 400
+    assert len(results) == 400
+    assert all(torch.equal(r, torch.tensor([1.0, 2.0, 3.0])) for r in results)
