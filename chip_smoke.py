@@ -30,6 +30,9 @@ processes from the start, beside the kernel phases.  It
    ``stage2_graphs``: the loop lap's first 100 scans through stage 2 alone,
    its chains replayed from CUDA graphs (``core/graphs.py``) and called
    eagerly, bit-equal scan by scan, with the runner's captures and replays,
+   ``stage3_graphs``: the same scans' mapping cycles (``vlp16()``, loop
+   closure on) graphed and eager from states of their own, bit-equal cycle
+   by cycle, with ms a cycle, K2's problems and the replays a cycle,
    ``loop_parity``: a small loop-closing lap twice on the card and once on
    the CPU — the two card runs bit-equal in every output and state field
    (``determinism``), card and CPU keyframe and loop-factor counts equal,
@@ -1171,6 +1174,110 @@ def stage2_graphs_phase(lap, dev):
     if differing:
         raise AssertionError(f"stage 2 replayed from graphs differs from the "
                              f"eager chain: {differing[:5]}")
+
+
+STAGE3_SCANS = 100
+
+
+def stage3_graphs_phase(lap, dev):
+    """Stage 3 as the main path runs it, its chains replayed from CUDA
+    graphs (``core/graphs.py``), against the same chains called eagerly
+    (``graphs.run`` patched to a plain call): the loop lap's first
+    ``STAGE3_SCANS`` scans with ``vlp16()`` (loop closure on: a loop attempt
+    every third cycle, no candidate this early), stages 1-2 once a scan and
+    each side's mapping cycle on the same ``AssociationOut`` from a state of
+    its own.  After every cycle its results and both sides' keyframe blocks
+    must be bit-equal (asserted); each side's ms a cycle is timed with a
+    synchronisation before and after, K2's problems are counted through its
+    module attribute on each side, and captures and replays a cycle are the
+    runner's counts."""
+    from unittest import mock
+
+    from lego_loam_tpu_torch.core import graphs
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.core.types import RawScan
+    from lego_loam_tpu_torch.frontend.segmentation import image_projection
+    from lego_loam_tpu_torch.graph import keyframes
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+    from lego_loam_tpu_torch.match import cuda_knn
+    from lego_loam_tpu_torch.pipeline import mapping, odometry
+    from lego_loam_tpu_torch.pipeline.slam import _mapping_due
+
+    scans, _, times = lap
+    cfg = vlp16()
+    assert cfg.mapping.enable_loop_closure
+    n = min(STAGE3_SCANS, len(scans))
+    x, v, t = pack_sequence(scans[:n], times[:n], cfg, device=dev)
+    sides = {"graphs": contextlib.nullcontext,
+             "eager": lambda: mock.patch.object(
+                 graphs, "run", lambda fn, *args: fn(*args))}
+    states = {side: mapping.init_state(cfg, dev) for side in sides}
+    seconds = {side: [] for side in sides}
+    problems = dict.fromkeys(sides, 0)
+    grouped = cuda_knn.knn5_cuda_grouped
+    side_now = [None]
+
+    def counting(batch):
+        problems[side_now[0]] += len(batch)
+        return grouped(batch)
+
+    odo = odometry.init_state(cfg, dev)
+    captures_by_cycle, replays_by_cycle, differing = [], [], []
+    with mock.patch.object(cuda_knn, "knn5_cuda_grouped", counting):
+        for i in range(n):
+            proj = image_projection(
+                RawScan(xyz=x[i].reshape(-1, 3), valid=v[i], stamp=t[i]), cfg)
+            odo, assoc = odometry.odometry_step(odo, proj, cfg)
+            if not _mapping_due(i, cfg):
+                continue
+            got = {}
+            for side, context in sides.items():
+                st = states[side]
+                side_now[0] = side
+                with context():
+                    torch.cuda.synchronize()
+                    c, r = graphs.capture_count(), graphs.replay_count()
+                    t0 = time.perf_counter()
+                    meta, row, pose, diag = mapping.mapping_step(
+                        st.meta, st.clouds, assoc, cfg)
+                    torch.cuda.synchronize()
+                    seconds[side].append(time.perf_counter() - t0)
+                    if side == "graphs":
+                        captures_by_cycle.append(graphs.capture_count() - c)
+                        replays_by_cycle.append(graphs.replay_count() - r)
+                clouds = keyframes.apply_row(st.clouds, row)
+                states[side] = mapping.MappingState(
+                    meta=meta.replace(bef_mapped=pose), clouds=clouds)
+                got[side] = (meta, row, pose, diag, clouds)
+            a, b = ([leaf for part in got[side] for leaf in tensors_of(part)]
+                    for side in sides)
+            k = len(replays_by_cycle) - 1
+            differing += [f"cycle {k} leaf {j}"
+                          for j, (p, q) in enumerate(zip(a, b))
+                          if not torch.equal(p, q)]
+            odo = odo.replace(odom=got["graphs"][2])
+    cycles = len(replays_by_cycle)
+    warm = 4          # cycles left out of the times: captures, first calls
+    report = {"phase": "stage3_graphs", "scans": n, "cycles": cycles,
+              "config": "vlp16() unchanged, mapping_step on stage 2's "
+                        "output",
+              "differing": differing[:20], "n_differing": len(differing),
+              "captures": sum(captures_by_cycle),
+              "captures_by_cycle": captures_by_cycle,
+              "replays_per_cycle": sum(replays_by_cycle) / cycles,
+              "knn5_problems": problems,
+              "ms_per_cycle": {side: 1e3 * statistics.mean(s[warm:])
+                               for side, s in seconds.items()},
+              "ms_per_cycle_median": {
+                  side: 1e3 * statistics.median(s[warm:])
+                  for side, s in seconds.items()},
+              "ms_first_cycles": {side: [1e3 * x for x in s[:warm]]
+                                  for side, s in seconds.items()}}
+    emit(report)
+    if differing:
+        raise AssertionError(f"stage 3 replayed from graphs differs from the "
+                             f"eager chain: {differing[:5]}")
+    assert problems["graphs"] == problems["eager"] > 0, problems
 
 
 def resolve_phase(state, dev):
@@ -2793,6 +2900,7 @@ def main() -> int:
     paths["loop"], state, loop_outs, loop_result = loop_phase(lap, dev)
     resolve_phase(state, dev)
     stage2_graphs_phase(lap, dev)
+    stage3_graphs_phase(lap, dev)
     loop_meta = state.mapping.meta
     # what the full lap's replay(mesh=…) in `sharded` is held to, off the card
     loop_run = {"tree": convert.to_numpy_tree(state),

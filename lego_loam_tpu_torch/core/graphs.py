@@ -29,8 +29,8 @@ and read nothing on the host.  Device constants it needs come from
 The outputs are the graph's own buffers, which the next replay of the same
 entry overwrites: a result kept past that is copied out (:func:`owned`).
 
-Arguments may be tensors, ``core.types.Container``s, tuples and lists of
-them; anything else is a constant of the key.  :func:`capture_count` and
+Arguments may be tensors, ``core.types.Container``s, tuples (named ones
+too) and lists of them; anything else is a constant of the key.  :func:`capture_count` and
 :func:`replay_count` count captures and replays over the process, as
 ``core/device.py::sync_count`` counts host reads.
 """
@@ -89,7 +89,9 @@ def _unflatten(spec, leaves):
     if kind is _CONST:
         return body
     items = [_unflatten(s, leaves) for s in body]
-    return kind(*items) if issubclass(kind, Container) else kind(items)
+    if issubclass(kind, Container) or hasattr(kind, "_fields"):
+        return kind(*items)          # a dataclass or a NamedTuple
+    return kind(items)
 
 
 def _replayable(t: Tensor) -> bool:

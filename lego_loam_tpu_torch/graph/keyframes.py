@@ -446,11 +446,25 @@ def assemble_submap(store: KeyframeStore, cur_pose: Tensor,
     into ``MappingMeta.map_sat`` so saturation is a counter, not a silent
     accuracy bug.
     """
+    sel_idx, sel_ok = surrounding(store.pose, store.count, cur_pose, cfg,
+                                  window)
+    corner_map, surf_map, sat = submap_of_rows(
+        store.pose, sel_idx, sel_ok, submap_rows(store.clouds, sel_idx), cfg)
+    if with_sat:
+        return corner_map, surf_map, sat
+    return corner_map, surf_map
+
+
+def surrounding(pose: Tensor, count: Tensor, cur_pose: Tensor,
+                cfg: LegoLoamConfig, window: int):
+    """The submap's keyframes: the ``window`` nearest to ``cur_pose`` by
+    keypose distance within ``surrounding_keyframe_search_radius``.
+    Returns (sel_idx (window,) int64, sel_ok (window,) bool)."""
     m = cfg.mapping
-    K = store.capacity
-    dev = store.pose.device
-    alive = torch.arange(K, device=dev) < store.count
-    dp = store.pose[:, 3:] - cur_pose[3:]
+    K = pose.shape[0]
+    dev = pose.device
+    alive = torch.arange(K, device=dev) < count
+    dp = pose[:, 3:] - cur_pose[3:]
     d = torch.sqrt(torch.sum(dp * dp, dim=-1))
     d = torch.where(alive, d, math.inf)
     in_radius = d <= m.surrounding_keyframe_search_radius
@@ -459,17 +473,30 @@ def assemble_submap(store: KeyframeStore, cur_pose: Tensor,
     d_sel, sel_idx = torch.sort(torch.where(in_radius, d, math.inf),
                                 stable=True)
     d_sel, sel_idx = d_sel[:window], sel_idx[:window]
-    sel_ok = torch.isfinite(d_sel)                       # (window,)
+    return sel_idx, torch.isfinite(d_sel)
 
-    sel_pose = store.pose[sel_idx]
+
+def submap_rows(clouds: KeyframeClouds, sel_idx: Tensor):
+    """The rows ``sel_idx`` of the three map blocks, whole or row-sharded
+    alike (:func:`take_rows`): ((corner, corner_valid), (surf, surf_valid),
+    (outlier, outlier_valid))."""
+    return tuple((take_rows(getattr(clouds, b), sel_idx),
+                  take_rows(getattr(clouds, b + "_valid"), sel_idx))
+                 for b in ("corner", "surf", "outlier"))
+
+
+def submap_of_rows(pose: Tensor, sel_idx: Tensor, sel_ok: Tensor, rows,
+                   cfg: LegoLoamConfig):
+    """The corner and surf maps of :func:`assemble_submap` from the selected
+    keyframes' :func:`submap_rows`: (corner_map, surf_map, sat)."""
+    m = cfg.mapping
+    sel_pose = pose[sel_idx]
 
     def world(blk, vld):
-        ok = take_rows(vld, sel_idx) & sel_ok[:, None]
-        return _transform_block(sel_pose, as_points(take_rows(blk, sel_idx)),
-                                ok), ok
-    corner_w, corner_valid = world(store.corner, store.corner_valid)
-    surf_w, surf_valid = world(store.surf, store.surf_valid)
-    out_w, out_valid = world(store.outlier, store.outlier_valid)
+        ok = vld & sel_ok[:, None]
+        return _transform_block(sel_pose, as_points(blk), ok), ok
+    (corner_w, corner_valid), (surf_w, surf_valid), (out_w, out_valid) = (
+        world(*r) for r in rows)
 
     corner_xyz, corner_ok, n_vox_c = voxel_downsample(
         corner_w.reshape(-1, 3), corner_valid.reshape(-1),
@@ -481,11 +508,7 @@ def assemble_submap(store: KeyframeStore, cur_pose: Tensor,
     surf_xyz, surf_ok, n_vox_s = voxel_downsample(
         surf_all, surf_all_valid, m.surf_leaf_size, m.max_map_surf,
         with_count=True)
-
-    maps = (MapCloud(xyz=corner_xyz, valid=corner_ok),
-            MapCloud(xyz=surf_xyz, valid=surf_ok))
-    if with_sat:
-        sat = (torch.clamp(n_vox_c - m.max_map_corner, min=0)
-               + torch.clamp(n_vox_s - m.max_map_surf, min=0))
-        return maps + (sat,)
-    return maps
+    sat = (torch.clamp(n_vox_c - m.max_map_corner, min=0)
+           + torch.clamp(n_vox_s - m.max_map_surf, min=0))
+    return (MapCloud(xyz=corner_xyz, valid=corner_ok),
+            MapCloud(xyz=surf_xyz, valid=surf_ok), sat)

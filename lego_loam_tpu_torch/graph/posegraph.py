@@ -97,7 +97,9 @@ def add_factor(g: FactorGraph, count: Tensor, i: Tensor, j: Tensor, z: Tensor,
 
     g = g.replace(
         i=put(g.i, i), j=put(g.j, j), z=put(g.z, z),
-        weight=put(g.weight, weight), valid=put(g.valid, True))
+        # valid = ``ok`` where written (True): a host scalar would be a copy
+        # to the device, which a CUDA-graph capture cannot hold
+        weight=put(g.weight, weight), valid=put(g.valid, ok))
     return g, count + ok.to(count.dtype)
 
 

@@ -41,7 +41,7 @@ import threading
 
 import torch
 
-from ..core import se3
+from ..core import graphs, se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, host_bool, resolve_device, stage
 from ..core.types import AssociationOut, Container
@@ -49,13 +49,14 @@ from ..distributed.sharded_pgo import optimize_poses_sharded
 from ..graph import submap_grid
 from ..graph.keyframes import (CORNER_CAP, OUTLIER_CAP, SCAN2D_CAP,
                                SURF_CAP, KeyframeClouds, KeyframeStore,
-                               assemble_submap, empty_clouds, make_row,
-                               put_row, take_row)
+                               empty_clouds, make_row,
+                               put_row, submap_of_rows, submap_rows,
+                               surrounding, take_row)
 from ..graph.posegraph import (FactorGraph, add_factor, empty_graph,
                                optimize_poses)
 from ..loop.detect import detect_and_verify
 from ..match.voxelhash import voxel_downsample
-from ..solve.scan2map import scan_to_map
+from ..solve.scan2map import map_is_thick, refine
 
 Tensor = torch.Tensor
 
@@ -155,35 +156,27 @@ def fuse_pose(state: MappingState, odom: Tensor) -> Tensor:
     return predict_pose(state.meta, odom)
 
 
-def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
-                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None):
-    """One mapping cycle.
+@dataclasses.dataclass
+class _Scan(Container):
+    """The cycle's scan clouds after the per-scan voxel filters."""
 
-    ``mesh``: optional ``distributed/mesh.py::Mesh``; a loop closure's
-    pose-graph re-solve then runs factor-sharded over it
-    (``distributed/sharded_pgo.py``) instead of on one device.
+    corner: Tensor
+    corner_ok: Tensor
+    surf: Tensor
+    surf_ok: Tensor
+    outlier: Tensor
+    outlier_ok: Tensor
+    surf_total: Tensor      # surf + outlier re-filtered: scan-to-map's
+    surf_total_ok: Tensor   # surf queries
+    scan2d: Tensor
+    scan2d_ok: Tensor
 
-    ``clouds`` (whole or row-sharded blocks, read through
-    ``keyframes.take_rows``) is read-only; the (possibly dropped) inserted
-    keyframe row comes back for the caller to ``apply_row``.  Returns
-    (new_meta, KeyframeRow, mapped_pose (6,), loop_diag (8,)):
-    ``loop_diag`` = [attempted, accepted, fitness, |corr translation|,
-    max |corr rotation|, old_idx, latest_idx, +1 re-solved / −1 rejected as
-    implausible / 0] of this cycle's loop attempt, zeros without one.
 
-    Host reads: the convergence reads inside ``scan_to_map`` and its
-    thin-map gate; with loop closure on, one read per cycle for "attempt a
-    closure", then inside an attempt one for "is there a candidate", one
-    per ICP iteration, one for "re-solve", and the PCG's reads of a
-    re-solve.
-    """
+def _downsample(assoc: AssociationOut, cfg: LegoLoamConfig) -> _Scan:
+    """downsampleCurrentScan (:999-1026).  Exact sort-based centroids here:
+    these clouds become the PERSISTENT keyframe blocks (and scan-to-map
+    queries), where any loss compounds over the whole trajectory."""
     m = cfg.mapping
-    dev = assoc.odom.device
-    pred = predict_pose(meta, assoc.odom)
-
-    # downsampleCurrentScan (:999-1026).  Exact sort-based centroids here:
-    # these clouds become the PERSISTENT keyframe blocks (and scan-to-map
-    # queries), where any loss compounds over the whole trajectory.
     corner_ds, corner_ok = voxel_downsample(
         assoc.corner_xyz, assoc.corner_valid, m.corner_leaf_size,
         CORNER_CAP)
@@ -199,57 +192,77 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
         m.surf_leaf_size, SURF_CAP)
     scan2d_ds, scan2d_ok = voxel_downsample(
         assoc.scan2d_xyz, assoc.scan2d_valid, 0.1, SCAN2D_CAP)
+    return _Scan(corner_ds, corner_ok, surf_ds, surf_ok, outlier_ds,
+                 outlier_ok, surf_total, surf_total_ok, scan2d_ds, scan2d_ok)
 
-    # extractSurroundingKeyFrames (:857-996) has two modes:
-    map_sat = meta.map_sat
-    window = m.surrounding_keyframe_search_num
-    if m.enable_loop_closure:
-        # loop-ON: latest-N window (:863-913), read from the persistent
-        # incremental voxel grid instead of re-assembling N keyframes
-        corner_map, surf_map = submap_grid.maps(meta.grid, meta.kf_count,
-                                                window)
-    else:
-        # loop-OFF (the reference's default config): 50 m keypose RADIUS
-        # search (:917-986) — a revisit must re-associate against the OLD
-        # map, which a latest-N window cannot provide.  Assembled from the
-        # keyframe store each cycle.
-        store0 = KeyframeStore(pose=meta.kf_pose, stamp=meta.kf_stamp,
-                               count=meta.kf_count, clouds=clouds)
-        corner_map, surf_map, submap_sat = assemble_submap(
-            store0, pred, cfg, window=window, with_sat=True)
-        map_sat = map_sat + submap_sat.to(map_sat.dtype)
 
-    pose = scan_to_map(pred, corner_ds, corner_ok, surf_total,
-                       surf_total_ok, corner_map, surf_map, cfg)
+def _prologue_grid(meta: MappingMeta, assoc: AssociationOut,
+                   cfg: LegoLoamConfig):
+    """The cycle up to scan-to-map with loop closure ON: the predicted pose,
+    the scan's voxel filters, the latest-N window read from the persistent
+    incremental voxel grid (:863-913; no re-assembly of N keyframes) and
+    the thin-map gate.  Returns (pred, scan, corner_map, surf_map, thick)."""
+    corner_map, surf_map = submap_grid.maps(
+        meta.grid, meta.kf_count, cfg.mapping.surrounding_keyframe_search_num)
+    return (predict_pose(meta, assoc.odom), _downsample(assoc, cfg),
+            corner_map, surf_map, map_is_thick(corner_map, surf_map, cfg))
+
+
+def _prologue_radius(meta: MappingMeta, assoc: AssociationOut,
+                     cfg: LegoLoamConfig):
+    """The cycle's start with loop closure OFF: the predicted pose, the
+    scan's voxel filters and the submap's keyframes.  Returns (pred, scan,
+    sel_idx, sel_ok)."""
+    pred = predict_pose(meta, assoc.odom)
+    sel_idx, sel_ok = surrounding(meta.kf_pose, meta.kf_count, pred, cfg,
+                                  cfg.mapping.surrounding_keyframe_search_num)
+    return pred, _downsample(assoc, cfg), sel_idx, sel_ok
+
+
+def _radius_submap(meta: MappingMeta, sel_idx, sel_ok, rows,
+                   cfg: LegoLoamConfig):
+    """The 50 m radius submap from its keyframes' rows, the saturation
+    counter and the thin-map gate: (corner_map, surf_map, map_sat,
+    thick)."""
+    corner_map, surf_map, sat = submap_of_rows(meta.kf_pose, sel_idx, sel_ok,
+                                               rows, cfg)
+    return (corner_map, surf_map, meta.map_sat + sat.to(meta.map_sat.dtype),
+            map_is_thick(corner_map, surf_map, cfg))
+
+
+def _tail(meta: MappingMeta, pose: Tensor, scan: _Scan, stamp: Tensor,
+          odom: Tensor, cfg: LegoLoamConfig):
+    """The cycle after scan-to-map: the keyframe decision and its row, the
+    grid insert (loop closure on), the factors, and whether to attempt a
+    closure.  Returns (new meta, KeyframeRow, run_loop, loop_diag)."""
+    m = cfg.mapping
     pose = se3.normalize_angles(pose)
 
     # saveKeyFramesAndFactor (:1335-1478): keyframe iff moved ≥ 0.3 m
-    K = clouds.capacity
+    K = meta.kf_pose.shape[0]
     last_i = torch.clamp(meta.kf_count - 1, min=0)
     last_kf = take_row(meta.kf_pose, last_i)
     dp = pose[3:] - last_kf[3:]
     moved = torch.sqrt(torch.sum(dp * dp))
     is_kf = (~meta.initialized) | (moved >= m.keyframe_distance)
     insert = is_kf & (meta.kf_count < K)
-    kf_dropped = meta.kf_dropped + (is_kf & ~insert).to(torch.int32)
 
     idx = torch.where(insert, meta.kf_count, K).to(torch.int32)  # K ⇒ dropped
-    row = make_row(idx, corner_ds, corner_ok, surf_ds, surf_ok,
-                   outlier_ds, outlier_ok, scan2d_ds, scan2d_ok)
-    kf_pose = put_row(meta.kf_pose, idx, pose)
-    kf_stamp = put_row(meta.kf_stamp, idx, assoc.stamp)
+    row = make_row(idx, scan.corner, scan.corner_ok, scan.surf, scan.surf_ok,
+                   scan.outlier, scan.outlier_ok, scan.scan2d, scan.scan2d_ok)
     kf_count = meta.kf_count + insert.to(torch.int32)
 
     grid = meta.grid
     if m.enable_loop_closure:
         grid = submap_grid.insert(
-            grid, meta.kf_count, pose, corner_ds, corner_ok, surf_ds,
-            surf_ok, outlier_ds, outlier_ok, cfg, window, enable=insert)
+            grid, meta.kf_count, pose, scan.corner, scan.corner_ok,
+            scan.surf, scan.surf_ok, scan.outlier, scan.outlier_ok, cfg,
+            m.surrounding_keyframe_search_num, enable=insert)
 
     # factors: PriorFactor on node 0 (:1363-1369) with the first keyframe,
     # BetweenFactor(prev, new) (:1384-1398) with every later one
-    odom_w = torch.tensor(m.odom_factor_weight, dtype=torch.float32,
-                          device=dev)
+    odom_w = graphs.constant(m.odom_factor_weight, torch.float32,
+                             pose.device)
     cap_f = meta.graph.i.shape[0]
     first = insert & (meta.kf_count == 0)
     later = insert & (meta.kf_count != 0)
@@ -261,41 +274,94 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
         graph, meta.factor_count, last_i, meta.kf_count,
         se3.relative(last_kf, pose), odom_w, enable=later)
 
-    loop_diag = torch.zeros((8,), dtype=torch.float32, device=dev)
-    # --- loop closure, every loop_every_n_mapping cycles (:1562-1568)
-    if m.enable_loop_closure:
-        run_loop = ((meta.cycle % m.loop_every_n_mapping == 0)
-                    & (kf_count > 2))
-        if host_bool(run_loop):
-            with stage("loop_attempt", dev):
-                store2 = KeyframeStore(pose=kf_pose, stamp=kf_stamp,
-                                       count=kf_count, clouds=clouds)
-                res = detect_and_verify(store2, row, assoc.stamp, cfg,
-                                        robot_pose=pose)
-            (kf_pose, grid, graph, fcount, fdrop, map_sat, pose,
-             loop_diag) = _close_loop(res, kf_pose, kf_count, grid, graph,
-                                      fcount, fdrop, map_sat, pose, clouds,
-                                      cfg, mesh)
-
-    new_meta = MappingMeta(
-        kf_pose=kf_pose, kf_stamp=kf_stamp, kf_count=kf_count,
-        grid=grid, graph=graph, factor_count=fcount,
-        cycle=meta.cycle + 1, aft_mapped=pose, bef_mapped=assoc.odom,
+    new = MappingMeta(
+        kf_pose=put_row(meta.kf_pose, idx, pose),
+        kf_stamp=put_row(meta.kf_stamp, idx, stamp), kf_count=kf_count,
+        grid=grid, graph=graph, factor_count=fcount, cycle=meta.cycle + 1,
+        aft_mapped=pose, bef_mapped=odom,
         initialized=torch.ones_like(meta.initialized),
-        kf_dropped=kf_dropped, factor_dropped=fdrop, map_sat=map_sat)
-    return new_meta, row, pose, loop_diag
+        kf_dropped=meta.kf_dropped + (is_kf & ~insert).to(torch.int32),
+        factor_dropped=fdrop, map_sat=meta.map_sat)
+    # a closure is attempted every loop_every_n_mapping cycles (:1562-1568)
+    run_loop = (meta.cycle % m.loop_every_n_mapping == 0) & (kf_count > 2)
+    return (new, row, run_loop,
+            torch.zeros((8,), dtype=torch.float32, device=pose.device))
 
 
-def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
-                aft, clouds, cfg, mesh=None):
+def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
+                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None):
+    """One mapping cycle.
+
+    ``mesh``: optional ``distributed/mesh.py::Mesh``; a loop closure's
+    pose-graph re-solve then runs factor-sharded over it
+    (``distributed/sharded_pgo.py``) instead of on one device.
+
+    ``clouds`` (whole or row-sharded blocks, read through
+    ``keyframes.take_rows``) is read-only; the (possibly dropped) inserted
+    keyframe row comes back for the caller to ``apply_row``.  Returns
+    (new_meta, KeyframeRow, mapped_pose (6,), loop_diag (8,)):
+    ``loop_diag`` = [attempted, accepted, fitness, |corr translation|,
+    max |corr rotation|, old_idx, latest_idx, +1 re-solved / −1 rejected as
+    implausible / 0] of this cycle's loop attempt, zeros without one.
+    None of them shares storage with ``meta`` or with a graph's buffers.
+
+    On a CUDA card the cycle's fixed-shape chains replay from CUDA graphs
+    (``core/graphs.py``): the prologue up to scan-to-map, scan-to-map's
+    iterations (``solve/scan2map.py::refine``, around an eager K2 launch)
+    and the tail after it.  Eager: with loop closure off the gather of the
+    submap's keyframe rows (the keyframe blocks are never a graph's input),
+    the loop attempt, and the copies of the results out of the graphs'
+    buffers.
+
+    Host reads: the convergence reads inside scan-to-map and its thin-map
+    gate; with loop closure on, one read per cycle for "attempt a
+    closure", then inside an attempt one for "is there a candidate", one
+    per ICP iteration, one for "re-solve", and the PCG's reads of a
+    re-solve.
+    """
+    m = cfg.mapping
+    # extractSurroundingKeyFrames (:857-996) has two modes:
+    if m.enable_loop_closure:
+        # loop-ON: latest-N window (:863-913), read from the grid
+        pred, scan, corner_map, surf_map, thick = graphs.run(
+            _prologue_grid, meta, assoc, cfg)
+    else:
+        # loop-OFF (the reference's default config): 50 m keypose RADIUS
+        # search (:917-986) — a revisit must re-associate against the OLD
+        # map, which a latest-N window cannot provide.  Assembled from the
+        # keyframe store each cycle; its rows are gathered eagerly.
+        pred, scan, sel_idx, sel_ok = graphs.run(
+            _prologue_radius, meta, assoc, cfg)
+        corner_map, surf_map, map_sat, thick = graphs.run(
+            _radius_submap, meta, sel_idx, sel_ok,
+            submap_rows(clouds, sel_idx), cfg)
+        meta = meta.replace(map_sat=map_sat)
+
+    pose = refine(pred, scan.corner, scan.corner_ok, scan.surf_total,
+                  scan.surf_total_ok, corner_map, surf_map, thick, cfg)
+    new, row, run_loop, loop_diag = graphs.run(
+        _tail, meta, pose, scan, assoc.stamp, assoc.odom, cfg)
+
+    if m.enable_loop_closure and host_bool(run_loop):
+        with stage("loop_attempt", pose.device):
+            store = KeyframeStore(pose=new.kf_pose, stamp=new.kf_stamp,
+                                  count=new.kf_count, clouds=clouds)
+            res = detect_and_verify(store, row, assoc.stamp, cfg,
+                                    robot_pose=new.aft_mapped)
+        new, loop_diag = _close_loop(res, new, clouds, cfg, mesh)
+    return graphs.owned((new, row, new.aft_mapped, loop_diag))
+
+
+def _close_loop(res, meta: MappingMeta, clouds: KeyframeClouds,
+                cfg: LegoLoamConfig, mesh=None):
     """The rest of a loop attempt (``performLoopClosure`` :767-854 and
     ``correctPoses`` :1481-1511): the diagnostics vector, the loop factor
     (a masked write: added iff the closure was accepted) and, iff accepted
     AND the ICP correction exceeds the relinearisation threshold, the
-    pose-graph re-solve, the carried correction and the grid rebuild."""
+    pose-graph re-solve, the carried correction and the grid rebuild.
+    Returns (new meta, loop_diag)."""
     global resolve_count, pcg_iteration_count
     m = cfg.mapping
-    map_sat = map_sat + res["sat"].to(map_sat.dtype)
     # The gate measures the RAW ICP correction in the latest keyframe's
     # frame (corrected = corr ∘ kf_pose) — a world-frame pose difference
     # would conjugate the rotation through the pose and pick up a phantom
@@ -320,26 +386,32 @@ def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
         (found & do_relin).to(torch.float32)
         - res["implausible"].to(torch.float32)])
 
-    cap_f = graph.i.shape[0]
+    cap_f = meta.graph.i.shape[0]
     w = torch.full((6,), 1.0, dtype=torch.float32, device=corr.device) \
         / torch.sqrt(torch.clamp(res["fitness"], min=1e-4))
-    fdrop = fdrop + (found & (fcount >= cap_f)).to(torch.int32)
-    graph, fcount = add_factor(graph, fcount, res["latest_idx"],
-                               res["old_idx"], res["z"], w, enable=found)
+    fdrop = meta.factor_dropped + (
+        found & (meta.factor_count >= cap_f)).to(torch.int32)
+    graph, fcount = add_factor(meta.graph, meta.factor_count,
+                               res["latest_idx"], res["old_idx"], res["z"], w,
+                               enable=found)
+    meta = meta.replace(
+        graph=graph, factor_count=fcount, factor_dropped=fdrop,
+        map_sat=meta.map_sat + res["sat"].to(meta.map_sat.dtype))
 
     if host_bool(found & do_relin):
         # The cyclic-reduction chain preconditioner solves the stiff
         # odometry chain exactly, leaving PCG only the low-rank loop-factor
         # perturbation; warm-started from the current poses the solve is
         # incremental (iSAM2's role): 2-3 GN steps suffice.
-        dev = kf_pose.device
+        dev = meta.kf_pose.device
         latest = res["latest_idx"]
-        old_latest = take_row(kf_pose, latest)
+        old_latest = take_row(meta.kf_pose, latest)
         solve = (optimize_poses if mesh is None else functools.partial(
             optimize_poses_sharded, mesh=mesh))
         with stage("loop_resolve", dev):
-            new_poses, iters = solve(kf_pose, kf_count, graph, gn_iters=3,
-                                     pcg_iters=64, return_iters=True)
+            new_poses, iters = solve(meta.kf_pose, meta.kf_count, graph,
+                                     gn_iters=3, pcg_iters=64,
+                                     return_iters=True)
         with _count_lock:
             resolve_count += 1
             pcg_iteration_count += sum(iters)
@@ -347,12 +419,12 @@ def _close_loop(res, kf_pose, kf_count, grid, graph, fcount, fdrop, map_sat,
         # keyframe_distance ahead of the last keyframe)
         delta = se3.compose(take_row(new_poses, latest),
                             se3.inverse(old_latest))
-        aft = se3.normalize_angles(se3.compose(delta, aft))
+        aft = se3.normalize_angles(se3.compose(delta, meta.aft_mapped))
         # the world-frame submap grid is stale after the rewrite —
         # re-scatter it under the corrected poses (the reference clears its
         # transformed-cloud cache here, :1497)
         with stage("grid_rebuild", dev):
-            grid = submap_grid.rebuild(new_poses, kf_count, clouds, cfg,
+            grid = submap_grid.rebuild(new_poses, meta.kf_count, clouds, cfg,
                                        window=m.surrounding_keyframe_search_num)
-        kf_pose = new_poses
-    return kf_pose, grid, graph, fcount, fdrop, map_sat, aft, diag
+        meta = meta.replace(kf_pose=new_poses, grid=grid, aft_mapped=aft)
+    return meta, diag

@@ -29,7 +29,9 @@ gradient), so the Jacobian of the weighted residual is the weight times the
 closed-form Jacobian of the plain residual, written out here.
 
 Loop form: a Python loop; the convergence flag is read on the host once per
-iteration (``host_bool``), the thin-map gate once per call.
+iteration that re-associated (``host_bool``), the thin-map gate once per
+call.  On a CUDA card the iterations replay from CUDA graphs around an
+eager K2 launch (:func:`refine`).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from ..core import graphs, se3
 from ..core.config import LegoLoamConfig
 from ..core.device import host_bool
 from ..core.linalg3 import eigvals_sym3, principal_eigvec_sym3
@@ -54,28 +56,32 @@ class MapCloud(NamedTuple):
     valid: Tensor   # (M,)
 
 
-def _neighbourhoods(worlds, valids, clouds, cfg: LegoLoamConfig):
-    """5-NN of every point of every (points, map) pair, searched together,
-    + the gate shared by both associations: all five exist and lie within
-    ``neighbor_radius`` (exact distances).  One ``(nb, near_ok)`` a pair."""
-    m = cfg.mapping
-    found = knn5_grouped([
+def _search(worlds, valids, clouds):
+    """5-NN of every point of every (points, map) pair, searched together:
+    one launch of K2 on the card, called eagerly (it stays outside every
+    replayed chain).  One ``(idx, d2)`` a pair."""
+    return knn5_grouped([
         (w.contiguous(), v.contiguous(), c.xyz.contiguous(),
          c.valid.contiguous())
         for w, v, c in zip(worlds, valids, clouds)])
-    out = []
-    for world, cloud, (idx, d2) in zip(worlds, clouds, found):
-        nb = cloud.xyz[idx.to(torch.int64)]              # (N,5,3)
-        # gate on EXACT distances recomputed from the gathered points
-        # (difference-first), and detect "fewer than 5 candidates" by the
-        # +inf marker in the fifth slot
-        diff = nb - world[:, None, :]
-        d2_exact = torch.sum(diff * diff, dim=-1)
-        invalid5 = d2[:, 4] >= 1e30                      # <5 candidates
-        near_ok = (torch.max(d2_exact, dim=1).values
-                   < m.neighbor_radius ** 2) & ~invalid5     # :1037
-        out.append((nb, near_ok))
-    return out
+
+
+def _near(world: Tensor, cloud: MapCloud, idx: Tensor, d2: Tensor,
+          cfg: LegoLoamConfig):
+    """The 5-NN ``nb`` of a search and the gate shared by both
+    associations: all five exist and lie within ``neighbor_radius`` (exact
+    distances).  Returns ``(nb, near_ok)``."""
+    m = cfg.mapping
+    nb = cloud.xyz[idx.to(torch.int64)]                  # (N,5,3)
+    # gate on EXACT distances recomputed from the gathered points
+    # (difference-first), and detect "fewer than 5 candidates" by the
+    # +inf marker in the fifth slot
+    diff = nb - world[:, None, :]
+    d2_exact = torch.sum(diff * diff, dim=-1)
+    invalid5 = d2[:, 4] >= 1e30                          # <5 candidates
+    near_ok = (torch.max(d2_exact, dim=1).values
+               < m.neighbor_radius ** 2) & ~invalid5     # :1037
+    return nb, near_ok
 
 
 def _corner_assoc(world: Tensor, pts_valid: Tensor, nb: Tensor,
@@ -138,16 +144,19 @@ def _surf_assoc(world: Tensor, pts: Tensor, pts_valid: Tensor, nb: Tensor,
     return n_unit, pd, torch.where(ok, w, 0.0)
 
 
-def _associate(pose: Tensor, corner_pts: Tensor, corner_valid: Tensor,
-               surf_pts: Tensor, surf_valid: Tensor, corner_map: MapCloud,
-               surf_map: MapCloud, cfg: LegoLoamConfig):
-    """One re-association: both clouds into the map frame, both 5-NN
-    searches in one go, then the two fits."""
-    world_c = se3.apply(pose, corner_pts)
-    world_s = se3.apply(pose, surf_pts)
-    (nb_c, ok_c), (nb_s, ok_s) = _neighbourhoods(
-        (world_c, world_s), (corner_valid, surf_valid),
-        (corner_map, surf_map), cfg)
+def _to_map(pose: Tensor, corner_pts: Tensor, surf_pts: Tensor):
+    """Both clouds into the map frame."""
+    return se3.apply(pose, corner_pts), se3.apply(pose, surf_pts)
+
+
+def _fits(world_c: Tensor, world_s: Tensor, found, corner_valid: Tensor,
+          surf_pts: Tensor, surf_valid: Tensor, corner_map: MapCloud,
+          surf_map: MapCloud, cfg: LegoLoamConfig):
+    """The two fits of one re-association, from its search's ``found``:
+    (centroid, u, wc, n_pl, pd, ws)."""
+    (idx_c, d2_c), (idx_s, d2_s) = found
+    nb_c, ok_c = _near(world_c, corner_map, idx_c, d2_c, cfg)
+    nb_s, ok_s = _near(world_s, surf_map, idx_s, d2_s, cfg)
     return (_corner_assoc(world_c, corner_valid, nb_c, ok_c, cfg)
             + _surf_assoc(world_s, surf_pts, surf_valid, nb_s, ok_s, cfg))
 
@@ -161,24 +170,134 @@ def _apply_jac(pose: Tensor, pts: Tensor) -> Tensor:
     return torch.cat([rot, eye], dim=-1)
 
 
+_EYE6 = tuple(tuple(float(i == j) for j in range(6)) for i in range(6))
+
+
+def _normal_equations(pose: Tensor, corner_pts: Tensor, surf_pts: Tensor,
+                      A, cfg: LegoLoamConfig):
+    """One GN iteration's linearisation on the association ``A``: the
+    weighted residuals, their closed-form Jacobians and the damped normal
+    equations.  Returns (H, Hd, g, n_sel)."""
+    centroid, u, wc, n_pl, pd, ws = A
+    n_sel = torch.sum(wc > 0) + torch.sum(ws > 0)
+
+    xc = se3.apply(pose, corner_pts)
+    v = xc - centroid
+    rc = v - torch.sum(v * u, dim=-1, keepdim=True) * u
+    dxc = _apply_jac(pose, corner_pts)                           # (Nc,3,6)
+    Jc = dxc - u[..., None] * torch.sum(u[..., None] * dxc, dim=1,
+                                        keepdim=True)
+    xs = se3.apply(pose, surf_pts)
+    rs = torch.sum(xs * n_pl, dim=-1) + pd
+    Js = torch.sum(n_pl[..., None] * _apply_jac(pose, surf_pts), dim=1)
+
+    r = torch.cat([(rc * wc[:, None]).reshape(-1), rs * ws])
+    J = torch.cat([(Jc * wc[:, None, None]).reshape(-1, 6),
+                   Js * ws[:, None]])                            # (R, 6)
+    H = J.T @ J
+    g = J.T @ r
+    Hd = H + 1e-4 * torch.diag(torch.diag(H)) \
+        + 1e-9 * graphs.constant(_EYE6, pose.dtype, pose.device)
+    return H, Hd, g, n_sel
+
+
+def _degeneracy(H: Tensor, cfg: LegoLoamConfig):
+    """The first iteration's degeneracy guard (:1274): the projection P
+    onto the well-constrained directions of H, and whether any is not.
+    Eager: ``eigh`` checks its errors on the host."""
+    eye6 = graphs.constant(_EYE6, H.dtype, H.device)
+    # a non-finite H (its step is zeroed below) must not make the
+    # eigensolver raise
+    evals, V = torch.linalg.eigh(torch.where(torch.isfinite(H).all(), H, eye6))
+    keep = evals >= cfg.mapping.degeneracy_eig_threshold      # :1274 (=100)
+    P = (V * keep[None, :].to(V.dtype)) @ V.T
+    return P, ~torch.all(keep)
+
+
+def _update(pose: Tensor, Hd: Tensor, g: Tensor, P: Tensor,
+            degenerate: Tensor, n_sel: Tensor, cfg: LegoLoamConfig):
+    """The step: the 6x6 solve, projected, zeroed where unusable, applied to
+    the pose; returns (pose, converged)."""
+    m = cfg.mapping
+    dx = -torch.linalg.solve_ex(Hd, g[:, None],
+                                check_errors=False).result[:, 0]
+    dx = torch.where(degenerate, P @ dx, dx)
+    dx = torch.where(torch.isnan(dx) | (n_sel < m.min_selected_points),
+                     torch.zeros_like(dx), dx)
+    pose = pose + dx
+
+    d_rot = torch.sqrt(torch.sum(dx[:3] ** 2))
+    d_tr = torch.sqrt(torch.sum(dx[3:] ** 2))
+    converged = ((d_rot * (180.0 / math.pi) < m.delta_r_converged_deg)
+                 & (d_tr * 100.0 < m.delta_t_converged_cm))
+    return pose, converged
+
+
+def _first_iteration(pose, corner_pts, corner_valid, surf_pts, surf_valid,
+                     corner_map, surf_map, world_c, world_s, found, cfg):
+    """Iteration 0 up to the degeneracy guard: the fits on the search's
+    ``found`` and the normal equations.  Returns (A, H, Hd, g, n_sel)."""
+    A = _fits(world_c, world_s, found, corner_valid, surf_pts, surf_valid,
+              corner_map, surf_map, cfg)
+    return (A,) + _normal_equations(pose, corner_pts, surf_pts, A, cfg)
+
+
+def _fresh_iteration(pose, corner_pts, corner_valid, surf_pts, surf_valid,
+                     corner_map, surf_map, world_c, world_s, found, P,
+                     degenerate, cfg):
+    """A later iteration that re-associated: the fits, the normal equations
+    and the update.  Returns (A, pose, converged)."""
+    A = _fits(world_c, world_s, found, corner_valid, surf_pts, surf_valid,
+              corner_map, surf_map, cfg)
+    _, Hd, g, n_sel = _normal_equations(pose, corner_pts, surf_pts, A, cfg)
+    return (A,) + _update(pose, Hd, g, P, degenerate, n_sel, cfg)
+
+
+def _stale_iteration(pose, corner_pts, surf_pts, A, P, degenerate, cfg):
+    """An iteration on the last association: the normal equations and the
+    update.  Returns the pose."""
+    _, Hd, g, n_sel = _normal_equations(pose, corner_pts, surf_pts, A, cfg)
+    return _update(pose, Hd, g, P, degenerate, n_sel, cfg)[0]
+
+
+def map_is_thick(corner_map: MapCloud, surf_map: MapCloud,
+                 cfg: LegoLoamConfig) -> Tensor:
+    """The thin-map gate (corner > 10 ∧ surf > 100,
+    ``mapOptmization.cpp:1316``) as a () bool on the device."""
+    m = cfg.mapping
+    return ((torch.sum(corner_map.valid) > m.min_corner_map)
+            & (torch.sum(surf_map.valid) > m.min_surf_map))
+
+
 def scan_to_map(pose0: Tensor, corner_pts: Tensor, corner_valid: Tensor,
                 surf_pts: Tensor, surf_valid: Tensor,
                 corner_map: MapCloud, surf_map: MapCloud,
                 cfg: LegoLoamConfig) -> Tensor:
     """Refine the map-frame pose.  Skipped when the submap is too thin
-    (corner ≤ 10 ∨ surf ≤ 100, ``mapOptmization.cpp:1316``)."""
+    (:func:`map_is_thick`)."""
+    return graphs.owned(refine(
+        pose0, corner_pts, corner_valid, surf_pts, surf_valid, corner_map,
+        surf_map, map_is_thick(corner_map, surf_map, cfg), cfg))
+
+
+def refine(pose0: Tensor, corner_pts: Tensor, corner_valid: Tensor,
+           surf_pts: Tensor, surf_valid: Tensor, corner_map: MapCloud,
+           surf_map: MapCloud, thick: Tensor, cfg: LegoLoamConfig) -> Tensor:
+    """:func:`scan_to_map` with its thin-map gate ``thick`` given (the
+    mapping cycle computes it with the submap).
+
+    On a CUDA card each iteration replays from CUDA graphs
+    (``core/graphs.py``): the pose applied to both clouds, then K2 launched
+    eagerly, then the fits, normal equations and update as one chain (at
+    iteration 0 the eager ``eigh`` of the degeneracy guard runs between the
+    normal equations and the update); an iteration on the last association
+    is one chain.  The returned pose may be a graph's buffer, which the
+    next call of this function overwrites."""
     m = cfg.mapping
-    dev = pose0.device
-    enough = ((torch.sum(corner_map.valid) > m.min_corner_map)
-              & (torch.sum(surf_map.valid) > m.min_surf_map))
-    if not host_bool(enough):
+    if not host_bool(thick):
         return pose0
 
-    eye6 = torch.eye(6, dtype=pose0.dtype, device=dev)
     pose = pose0
-    P = eye6
-    degenerate = torch.zeros((), dtype=torch.bool, device=dev)
-    A = None
     for it in range(m.scan2map_iters):
         # Associate every ``scan2map_reassoc_every`` iterations (constants
         # for the GN steps in between).  The reference re-runs its KD
@@ -187,54 +306,28 @@ def scan_to_map(pose0: Tensor, corner_pts: Tensor, corner_valid: Tensor,
         # thresholds (0.05 deg / 0.05 cm), so the 5-NN sets don't change.
         fresh = (m.scan2map_reassoc_every <= 1
                  or it % m.scan2map_reassoc_every == 0)
-        if fresh:
-            A = _associate(pose, corner_pts, corner_valid, surf_pts,
-                           surf_valid, corner_map, surf_map, cfg)
-        centroid, u, wc, n_pl, pd, ws = A
-        n_sel = torch.sum(wc > 0) + torch.sum(ws > 0)
-
-        # weighted residuals and their closed-form Jacobians
-        xc = se3.apply(pose, corner_pts)
-        v = xc - centroid
-        rc = v - torch.sum(v * u, dim=-1, keepdim=True) * u
-        dxc = _apply_jac(pose, corner_pts)                       # (Nc,3,6)
-        Jc = dxc - u[..., None] * torch.sum(u[..., None] * dxc, dim=1,
-                                            keepdim=True)
-        xs = se3.apply(pose, surf_pts)
-        rs = torch.sum(xs * n_pl, dim=-1) + pd
-        Js = torch.sum(n_pl[..., None] * _apply_jac(pose, surf_pts), dim=1)
-
-        r = torch.cat([(rc * wc[:, None]).reshape(-1), rs * ws])
-        J = torch.cat([(Jc * wc[:, None, None]).reshape(-1, 6),
-                       Js * ws[:, None]])                        # (R, 6)
-        H = J.T @ J
-        g = J.T @ r
-        Hd = H + 1e-4 * torch.diag(torch.diag(H)) + 1e-9 * eye6
-        dx = -torch.linalg.solve_ex(Hd, g[:, None],
-                                    check_errors=False).result[:, 0]
-
+        if not fresh:
+            pose = graphs.run(_stale_iteration, pose, corner_pts, surf_pts,
+                              A, P, degenerate, cfg)
+            continue
+        world_c, world_s = graphs.run(_to_map, pose, corner_pts, surf_pts)
+        found = _search((world_c, world_s), (corner_valid, surf_valid),
+                        (corner_map, surf_map))
+        scan = (corner_pts, corner_valid, surf_pts, surf_valid, corner_map,
+                surf_map, world_c, world_s, found)
         if it == 0:
-            # a non-finite H (its step is zeroed below) must not make the
-            # eigensolver raise
-            evals, V = torch.linalg.eigh(
-                torch.where(torch.isfinite(H).all(), H, eye6))
-            keep = evals >= m.degeneracy_eig_threshold    # :1274 (=100)
-            P = (V * keep[None, :].to(V.dtype)) @ V.T
-            degenerate = ~torch.all(keep)
-        dx = torch.where(degenerate, P @ dx, dx)
-        dx = torch.where(torch.isnan(dx) | (n_sel < m.min_selected_points),
-                         torch.zeros_like(dx), dx)
-        pose = pose + dx
-
-        d_rot = torch.sqrt(torch.sum(dx[:3] ** 2))
-        d_tr = torch.sqrt(torch.sum(dx[3:] ** 2))
+            A, H, Hd, g, n_sel = graphs.run(_first_iteration, pose, *scan,
+                                            cfg)
+            P, degenerate = _degeneracy(H, cfg)
+            pose, converged = graphs.run(_update, pose, Hd, g, P,
+                                         degenerate, n_sel, cfg)
+        else:
+            A, pose, converged = graphs.run(_fresh_iteration, pose, *scan, P,
+                                            degenerate, cfg)
         # Convergence may only be declared on an iteration that ran a
         # fresh association: a small dx on a frozen-correspondence
         # iteration can mean "stale constraints", not "converged"
         # (the reference re-searches every iteration, :1325-1327).
-        if fresh:
-            converged = ((d_rot * (180.0 / math.pi) < m.delta_r_converged_deg)
-                         & (d_tr * 100.0 < m.delta_t_converged_cm))
-            if host_bool(converged):
-                break
+        if host_bool(converged):
+            break
     return pose

@@ -31,7 +31,8 @@ from lego_loam_tpu_torch.io import npz_io as tnpz
 from lego_loam_tpu_torch.io import synthetic as tsynthetic
 from lego_loam_tpu_torch.pipeline import odometry as todo
 from lego_loam_tpu_torch.solve import odometry as tsolve
-from torch_port_util import small_cfgs, tnp, to_np, to_torch
+from torch_port_util import (graphs_replayed_on_cpu, leaves, small_cfgs,
+                             storages, tnp, to_np, to_torch)
 
 JCFG, TCFG = small_cfgs()
 ROT_ATOL, TRANS_ATOL = 1e-4, 1e-3
@@ -252,36 +253,12 @@ def test_odometry_steps_reproduce_the_golden_bits():
             np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
 
 
-def _leaves(tree):
-    leaves = []
-    graphs._flatten(tree, leaves)
-    return leaves
-
-
-def _storages(tree):
-    return {t.untyped_storage().data_ptr() for t in _leaves(tree)
-            if t.numel()}
-
-
 @pytest.fixture
-def replayed_on_cpu(monkeypatch):
-    """``core/graphs.py``'s graph path on the CPU: a chain is 'captured'
-    once per key, and each 'replay' writes into the buffers of the first
-    call's outputs, as a CUDA graph's replay writes into its pool (an output
-    that is an input stays the static input, rewritten by the next copy)."""
-    def record(fn, spec, static):
-        outputs = fn(*graphs._unflatten(spec, iter(static)))
-
-        def replay():
-            fresh = fn(*graphs._unflatten(spec, iter(static)))
-            for dst, src in zip(_leaves(outputs), _leaves(fresh)):
-                dst.copy_(src)
-        return replay, outputs
-
-    monkeypatch.setattr(graphs, "_record", record)
-    monkeypatch.setattr(graphs, "_replayable", lambda t: True)
-    monkeypatch.setattr(graphs._LOCAL, "entries", {}, raising=False)
-    return graphs._entries()
+def replayed_on_cpu():
+    """``core/graphs.py``'s graph path on the CPU
+    (``torch_port_util.graphs_replayed_on_cpu``): the runner's entries."""
+    with graphs_replayed_on_cpu() as emulated:
+        yield emulated.entries
 
 
 def test_replayed_steps_keep_the_bits_and_own_their_results(replayed_on_cpu):
@@ -310,14 +287,14 @@ def test_replayed_steps_keep_the_bits_and_own_their_results(replayed_on_cpu):
         new_state, out = todo.odometry_step(state, proj, TCFG)
         buffers = set()
         for entry in replayed_on_cpu.values():
-            buffers |= _storages(entry.inputs) | _storages(entry.outputs)
-        mine = _storages((new_state, out)) - _storages(proj)
-        assert not mine & _storages(state)
+            buffers |= storages(entry.inputs) | storages(entry.outputs)
+        mine = storages((new_state, out)) - storages(proj)
+        assert not mine & storages(state)
         assert not mine & buffers
         kept.append(((new_state, out), graphs.owned((new_state, out))))
         state = new_state
     for result, copy in kept:
-        for a, b in zip(_leaves(result), _leaves(copy)):
+        for a, b in zip(leaves(result), leaves(copy)):
             assert torch.equal(a, b)
 
 
@@ -350,9 +327,9 @@ def test_graph_key_separates_shapes_devices_and_threads(replayed_on_cpu):
     assert len(replayed_on_cpu) == 3
 
     # the device is part of the key
-    leaves = [torch.ones(3)]
-    spec = graphs._flatten((leaves[0], 2.0), [])
-    assert (graphs._key(double, spec, leaves)
+    ones = [torch.ones(3)]
+    spec = graphs._flatten((ones[0], 2.0), [])
+    assert (graphs._key(double, spec, ones)
             != graphs._key(double, spec, [torch.ones(3, device="meta")]))
 
 

@@ -2,16 +2,19 @@
 both sides, NumPy bridges between the JAX package and the PyTorch port, and
 the port's CPU replay of the JAX package's loop-lap sequences."""
 
+import contextlib
 import dataclasses
 import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from lego_loam_tpu.core import config as jcfg
 from lego_loam_tpu_torch import convert
 from lego_loam_tpu_torch.core import config as tcfg
+from lego_loam_tpu_torch.core import graphs
 from lego_loam_tpu_torch.core import se3 as tse3
 from lego_loam_tpu_torch.eval.metrics import ate
 
@@ -133,3 +136,66 @@ def replay_drive(n, seq, **mapping):
     finally:
         torch.set_num_threads(before)
     return final, {k: v.numpy() for k, v in outs.items()}, gt
+
+
+# ---------------------------------------------------------------------------
+# ``core/graphs.py``'s graph path, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def leaves(tree):
+    """The tensors of a tree as ``core/graphs.py`` walks it."""
+    out = []
+    graphs._flatten(tree, out)
+    return out
+
+
+def storages(tree):
+    """The storages of a tree's non-empty tensors."""
+    return {t.untyped_storage().data_ptr() for t in leaves(tree)
+            if t.numel()}
+
+
+@dataclasses.dataclass
+class EmulatedGraphs:
+    entries: dict        # the runner's entries of this thread
+    depth: list          # [n]: n > 0 while a chain is being run
+
+    @property
+    def in_chain(self) -> bool:
+        return self.depth[0] > 0
+
+    def buffers(self):
+        """The storages of every entry's static inputs and outputs."""
+        out = set()
+        for entry in self.entries.values():
+            out |= storages(entry.inputs) | storages(entry.outputs)
+        return out
+
+
+@contextlib.contextmanager
+def graphs_replayed_on_cpu():
+    """``core/graphs.py``'s graph path on the CPU: a chain is 'captured'
+    once per key, and each 'replay' writes into the buffers of the first
+    call's outputs, as a CUDA graph's replay writes into its pool (an output
+    that is an input stays the static input, rewritten by the next copy)."""
+    depth = [0]
+
+    def record(fn, spec, static):
+        def call():
+            depth[0] += 1
+            try:
+                return fn(*graphs._unflatten(spec, iter(static)))
+            finally:
+                depth[0] -= 1
+        outputs = call()
+
+        def replay():
+            for dst, src in zip(leaves(outputs), leaves(call())):
+                dst.copy_(src)
+        return replay, outputs
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "_record", record)
+        mp.setattr(graphs, "_replayable", lambda t: True)
+        mp.setattr(graphs._LOCAL, "entries", {}, raising=False)
+        yield EmulatedGraphs(graphs._entries(), depth)
