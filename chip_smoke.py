@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scans N] [--profile N] [--long]
+    python3 chip_smoke.py [--scans N] [--long]
 
 Needs one CUDA card, ``nvcc`` and nothing else; exits non-zero without a
 card.  The synthetic sequences it replays are made on the host in worker
@@ -78,17 +78,11 @@ processes from the start, beside the kernel phases.  It
    each stream's own replay, and, for its ``replay`` over the global mesh
    (a keyframe row on every shard), to a one-process replay bit for bit,
    every partial sum counted through the backend's ``all_reduce``,
-10. with ``--profile N``, traces N more scans (scan-steps) of ``slice``,
-   ``batched`` and ``sharded`` with ``torch.profiler`` and prints the
-   device's busy share and the kernels that take most of it; ``--long``
-   also runs (and sets ``--profile 20`` unless given) ``stevens``
-   (``BASELINE.json`` config 2 at ``benchmarks/stevens_stress.py``'s
-   default: the figure-eight tiled to 2000 scans; then again over a mesh of
-   4 shards, held to the first run's counts and ATE), ``d1_cost`` (the
-   order-fixed sums against the parent's ``index_add_``, in turns),
-   ``scaling`` (``multihost --bench`` in 1 and 2 processes beside two
-   threads), ``hdl64_noise`` (the ``hdl64`` drive's ATE under noise of 1
-   to 100 µm) and ``hdl64_cpu`` (the ``hdl64`` drive on the CPU cores),
+10. with ``--long``, ``stevens`` (``BASELINE.json`` config 2 at
+   ``benchmarks/stevens_stress.py``'s default: the figure-eight tiled to
+   2000 scans; then again over a mesh of 4 shards, held to the first run's
+   counts and ATE) and ``scaling`` (``multihost --bench`` in 1 and 2
+   processes beside two threads),
 11. prints one ``{"kernels": [...]}`` line (``launches``: every main path)
    and, last, the ``{"ok": ...}`` line.
 
@@ -100,9 +94,10 @@ the eager loop cannot go below the host's enqueue rate), and ``call_ms``,
 one eager wrapper call between a pair of events (what a caller that waits
 for the result pays, enqueue included).  ``launch_floor_ms`` holds the same
 times for an empty kernel.  ``plain_ms`` and ``library_ms`` are per-call
-times.  ``bound_ms`` is the larger of bytes / 3.35 TB/s and operations /
-67 TFLOP/s (float32 outside the tensor cores), the published peaks of an
-H100 SXM at its full power limit.
+times.  ``bound_ms`` is the larger of bytes / peak bandwidth and
+operations / peak float32 rate (outside the tensor cores), with the
+benchmark's counts (``slam_bench/metrics/_arith.py``) and the published
+peaks of an H100 SXM at its full power limit (``slam_bench/peaks.py``).
 """
 
 from __future__ import annotations
@@ -126,8 +121,11 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+from slam_bench.metrics._arith import (k1_bytes, k1_ops, k2_bytes, k2_flops,
+                                       least_s)
+from slam_bench.peaks import PEAKS
+
+H100 = PEAKS["NVIDIA H100 80GB HBM3"]
 FAR = 1e30
 PLAIN_RANK_TOL = 2e-3      # m^2, see check_knn
 TIME_KEYS = ("ms", "ms_loop", "ms_graph", "call_ms")
@@ -472,11 +470,9 @@ def label_phase(scans, cfg, dev, floor):
     batched = label_batched_checks(cases, scan_keys, gen, dev)
 
     def bound_ms(n_pixels):
-        n_bytes = n_pixels * (4 + 1 + 1 + 4)   # labels0, 2 masks in; 1 out
-        n_ops = 8 * n_pixels                   # a few integer ops a pixel
-        return max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+        return least_s(k1_ops(n_pixels), k1_bytes(n_pixels), H100) * 1e3
 
-    n_bytes = V * H * 10
+    n_bytes = k1_bytes(V * H)
     bound = bound_ms(V * H)
     entry = {
         "name": "label_ccl", "route": "cuda",
@@ -486,7 +482,8 @@ def label_phase(scans, cfg, dev, floor):
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
         "launch_floor_ms": floor,
         "bound_how": f"{n_bytes} bytes (int32 labels0 and two 1-byte masks "
-                     f"read, int32 labels written) / 3.35e12 B/s; under one "
+                     f"read, int32 labels written) / "
+                     f"{H100['hbm_bytes_per_s']:g} B/s; under one "
                      f"launch (launch_floor_ms)",
         "resources": kernel_resources("label_cluster_kernel",
                                       "label_grid_kernel"),
@@ -658,14 +655,13 @@ def knn_bound(*problems):
     """Least time of the searches on this card, in ms, and how it is
     bound: each input read once and the five (index, distance) pairs a query
     written once, against 8 flops per valid (query, candidate) pair."""
-    n_bytes = n_ops = 0
-    for q, qv, c, cv in problems:
-        Q, M = q.shape[0], c.shape[0]
-        n_bytes += Q * 12 + Q + M * 12 + M + Q * 5 * 8
-        n_ops += 8 * int(qv.sum()) * int(cv.sum())
-    bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
-    return bound, (f"{n_ops} flops (8 per valid pair) / 67e12 vs "
-                   f"{n_bytes} bytes / 3.35e12")
+    n_bytes = sum(k2_bytes(q.shape[0], c.shape[0]) for q, _, c, _ in problems)
+    n_ops = sum(k2_flops(int(qv.sum()) * int(cv.sum()))
+                for _, qv, _, cv in problems)
+    bound = least_s(n_ops, n_bytes, H100) * 1e3
+    return bound, (f"{n_ops} flops (8 per valid pair) / "
+                   f"{H100['fp32_flops_per_s']:g} vs {n_bytes} bytes / "
+                   f"{H100['hbm_bytes_per_s']:g}")
 
 
 def library_knn(q, qv, c, cv):
@@ -907,7 +903,7 @@ def slice_phase(scans, gt, times, cfg, dev):
     # at least one and at most scan2map_iters of them per mapping cycle
     assert (with_map <= launches["knn5"]
             <= cfg.mapping.scan2map_iters * with_map), launches
-    return launches, state, (x, v, t)
+    return launches
 
 
 LAP = dict(seed=21, noise=0.01, radius=6.5, speed=1.3)   # one 31.4 s lap
@@ -1201,7 +1197,7 @@ def stage3_graphs_phase(lap, dev):
     from lego_loam_tpu_torch.io.npz_io import pack_sequence
     from lego_loam_tpu_torch.match import cuda_knn
     from lego_loam_tpu_torch.pipeline import mapping, odometry
-    from lego_loam_tpu_torch.pipeline.slam import _mapping_due
+    from lego_loam_tpu_torch.pipeline.slam import mapping_due
 
     scans, _, times = lap
     cfg = vlp16()
@@ -1228,7 +1224,7 @@ def stage3_graphs_phase(lap, dev):
             proj = image_projection(
                 RawScan(xyz=x[i].reshape(-1, 3), valid=v[i], stamp=t[i]), cfg)
             odo, assoc = odometry.odometry_step(odo, proj, cfg)
-            if not _mapping_due(i, cfg):
+            if not mapping_due(i, cfg):
                 continue
             got = {}
             for side, context in sides.items():
@@ -1677,12 +1673,11 @@ BATCH_SCANS = 100
 SHARDED_SCANS = 60
 
 
-def batched_phase(streams, dev, profile_scans: int = 0):
+def batched_phase(streams, dev):
     """``pipeline.slam.batched_replay`` of 4 streams lock-step, ``vlp16()``
     as shipped (loop closure on), beside ``replay`` of stream 0 alone in
     the same call.  Every count zeroed just before each run and read just
-    after; K1 must launch once per scan-step for all 4 streams.  With
-    ``profile_scans``, that many more scan-steps are traced after."""
+    after; K1 must launch once per scan-step for all 4 streams."""
     from lego_loam_tpu_torch.core import device as D
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.frontend import cuda_label
@@ -1711,10 +1706,6 @@ def batched_phase(streams, dev, profile_scans: int = 0):
     syncs = D.sync_count()
     stages = D.stage_times_ms()
     peak = torch.cuda.max_memory_allocated()
-    if profile_scans:
-        p = profile_scans
-        profile_phase("batched", lambda: batched_replay(
-            x[:, :p], v[:, :p], t[:, :p], cfg, device=dev), p)
     del x, v, t, packed
 
     per_stream = []
@@ -1815,7 +1806,7 @@ def knn_two_streams_check(dev, calls: int = 50):
 
 
 def sharded_phase(streams, batched_outs, loop_meta, small_lap, loop_lap,
-                  loop_run, dev, profile_scans: int = 0):
+                  loop_run, dev):
     """``distributed.mesh.replay_sharded`` over a mesh of 2 shards on the
     one card (two host threads, K2 and K1 from both) on the first
     ``SHARDED_SCANS`` scans of the batched streams, against
@@ -1829,10 +1820,8 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, loop_lap,
     reassembled to that run's bit for bit, and the fused poses' difference
     reported beside that of two runs without a mesh; then
     :func:`mesh_lap_run` on ``loop_lap``, the ``loop`` phase's lap, over
-    ``MESH_SHARDS`` shards.  With
-    ``profile_scans``, that many scan-steps of ``replay_sharded`` are traced
-    after its timed run.  Returns the launches of ``replay_sharded`` and of
-    the full lap, apart."""
+    ``MESH_SHARDS`` shards.  Returns the launches of ``replay_sharded`` and
+    of the full lap, apart."""
     from lego_loam_tpu_torch import convert
     from lego_loam_tpu_torch.core.config import vlp16
     from lego_loam_tpu_torch.distributed import sharded_pgo
@@ -1859,10 +1848,6 @@ def sharded_phase(streams, batched_outs, loop_meta, small_lap, loop_lap,
     wall = time.perf_counter() - t0
     launches = {"label_ccl": cuda_label.launch_count,
                 "knn5": cuda_knn.launch_count}
-    if profile_scans:
-        p = profile_scans
-        profile_phase("sharded", lambda: replay_sharded(
-            x[:, :p], v[:, :p], t[:, :p], cfg, mesh), p)
     del x, v, t, packed
     B = len(streams)
     diff = float(torch.max(torch.linalg.norm(
@@ -2595,178 +2580,6 @@ def scaling_phase(dev):
               "aggregate_scans_per_s"] / one})
 
 
-@contextlib.contextmanager
-def old_index_add_sums():
-    """Put the parent's float ``index_add_`` sums back in place of
-    ``core/segsum.py`` in the three modules that sum, while the block runs
-    (measurement only: D-1's cost, the old path on the same inputs)."""
-    from lego_loam_tpu_torch.graph import posegraph, submap_grid
-    from lego_loam_tpu_torch.match import voxelhash
-
-    def plan(slot, num_slots, presorted=False):
-        return slot.to(torch.int64).clamp(max=num_slots), num_slots
-
-    def total(values, p):
-        slot, num = p
-        out = values.new_zeros((num + 1,) + tuple(values.shape[1:]))
-        return out.index_add_(0, slot, values)[:num]
-
-    saved = [(m, m.segments, m.segment_sum)
-             for m in (posegraph, submap_grid, voxelhash)]
-    for m, _, _ in saved:
-        m.segments, m.segment_sum = plan, total
-    try:
-        yield
-    finally:
-        for m, seg, tot in saved:
-            m.segments, m.segment_sum = seg, tot
-
-
-def d1_cost_phase(bench, lap, loop_meta, dev):
-    """What the order-fixed sums cost against the parent's ``index_add_``
-    on the same inputs, in turns (old, new, new, old): ms a scan on the
-    slice (loop off) and on the lap (loop on), and ms a re-solve on the
-    loop run's final graph."""
-    from lego_loam_tpu_torch.core.config import vlp16
-    from lego_loam_tpu_torch.graph.posegraph import optimize_poses
-    slice_cfg = vlp16()
-    slice_cfg = slice_cfg.replace(mapping=dataclasses.replace(
-        slice_cfg.mapping, enable_loop_closure=False))
-    out = {}
-    for name, seq, cfg in (("slice", bench, slice_cfg),
-                           ("loop", lap, vlp16())):
-        runs = {"index_add_": [], "segsum": []}
-        for old in (True, False, False, True):
-            with (old_index_add_sums() if old else contextlib.nullcontext()):
-                r = timed_replay(seq, cfg, dev)
-            runs["index_add_" if old else "segsum"].append(r["ms_per_scan"])
-        out[name] = {k: {"ms_per_scan": v, "median": statistics.median(v)}
-                     for k, v in runs.items()}
-        out[name]["segsum_minus_index_add_ms_per_scan"] = (
-            out[name]["segsum"]["median"] - out[name]["index_add_"]["median"])
-    meta = loop_meta
-    solves = {"index_add_": [], "segsum": []}
-    for old in (True, False, False, True, True, False):
-        with (old_index_add_sums() if old else contextlib.nullcontext()):
-            optimize_poses(meta.kf_pose, meta.kf_count, meta.graph,
-                           gn_iters=3, pcg_iters=64)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            optimize_poses(meta.kf_pose, meta.kf_count, meta.graph,
-                           gn_iters=3, pcg_iters=64)
-            torch.cuda.synchronize()
-        solves["index_add_" if old else "segsum"].append(
-            1e3 * (time.perf_counter() - t0))
-    out["resolve"] = {k: {"ms": v, "median": statistics.median(v)}
-                      for k, v in solves.items()}
-    emit({"phase": "d1_cost", **out})
-
-
-NOISE_RUNS = ((1e-6, 0), (1e-6, 1), (1e-6, 2), (1e-5, 0), (1e-4, 0))
-
-
-def hdl64_noise_phase(drive, dev):
-    """How far the ``hdl64`` drive's ATE moves under Gaussian noise of
-    ``eps`` metres on every valid coordinate (seeded), on the card: the
-    spread rounding alone can explain, beside the gap to the JAX package's
-    0.338 m (ROADMAP Queue D-2)."""
-    from lego_loam_tpu_torch.core.config import hdl64
-    from lego_loam_tpu_torch.io.npz_io import pack_sequence
-    from lego_loam_tpu_torch.pipeline.slam import replay
-    scans, gt, times = drive
-    cfg = hdl64()
-    x, v, t = pack_sequence(scans, times, cfg, device=dev)
-    per_coord = v.repeat_interleave(3, dim=1)
-    gen = torch.Generator(device=dev)
-    runs = []
-    for eps, seed in NOISE_RUNS:
-        gen.manual_seed(seed)
-        noise = torch.randn(x.shape, device=dev, generator=gen) * eps
-        state, outs = replay(torch.where(per_coord, x + noise, x), v, t, cfg,
-                             device=dev)
-        _, ate_m = pose_errors(outs["fused"].cpu().numpy(), gt)
-        meta = state.mapping.meta
-        kf = int(meta.kf_count)
-        runs.append({"eps_m": eps, "seed": seed, "ate_rmse": ate_m["rmse"],
-                     "keyframes": kf,
-                     "loop_factors": int(meta.factor_count) - (kf - 1)})
-    emit({"phase": "hdl64_noise", "runs": runs})
-    assert all(np.isfinite(r["ate_rmse"]) for r in runs), runs
-
-
-def hdl64_cpu_phase(drive):
-    """The ``hdl64`` drive through ``replay`` with ``device="cpu"`` (the
-    plain versions of both kernels), on this machine's CPU cores: the ATE
-    that tells the card's float order from a fault of the port's (the JAX
-    package read 0.338 m, ``KITTI64_r05.json``; the card 0.371-0.373 m
-    before the sums were order-fixed).  Progress is printed every 30
-    scans."""
-    from lego_loam_tpu_torch.core.config import hdl64
-    from lego_loam_tpu_torch.io.npz_io import pack_sequence
-    from lego_loam_tpu_torch.pipeline.slam import init_state, replay_from
-    scans, gt, times = drive
-    cfg = hdl64()
-    cpu = torch.device("cpu")
-    threads = torch.get_num_threads()
-    state = init_state(cfg, cpu)
-    fused, t0 = [], time.perf_counter()
-    for k in range(0, len(scans), 30):
-        x, v, t = pack_sequence(scans[k:k + 30], times[k:k + 30], cfg,
-                                device=cpu)
-        state, outs = replay_from(state, x, v, t, cfg, device=cpu)
-        fused.append(outs["fused"].numpy())
-        emit({"phase": "hdl64_cpu_progress", "scans": k + len(x),
-              "seconds": time.perf_counter() - t0})
-    fused = np.concatenate(fused)
-    err, ate_m = pose_errors(fused, gt)
-    meta = state.mapping.meta
-    kf, factors = int(meta.kf_count), int(meta.factor_count)
-    emit({"phase": "hdl64_cpu", "device": "cpu", "torch_threads": threads,
-          "scans": len(fused), "seconds": time.perf_counter() - t0,
-          "keyframes": kf, "loop_factors": factors - (kf - 1), "ate": ate_m,
-          "err_at_scan_m": {k: float(err[k]) for k in (10, 164, 328)}})
-    assert np.isfinite(ate_m["rmse"]), ate_m
-
-
-def replay_from_packed(state, packed, n: int, cfg, dev):
-    """``replay_from`` of the first ``n`` packed scans, continuing
-    ``state``."""
-    from lego_loam_tpu_torch.pipeline.slam import replay_from
-    x, v, t = (a[:n] for a in packed)
-    return replay_from(state, x, v, t, cfg, device=dev)
-
-
-def profile_phase(path: str, run, n: int):
-    """Trace one call of ``run()`` (``n`` scans, or scan-steps, of the
-    ``path`` phase's run continued); device busy share = summed kernel time
-    / wall time of the window, as ``benchmarks/trace_summary.py`` reads a
-    trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side rows only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "path": path, "scans": n,
-          "wall_ms_traced": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "device_launches": sum(r[2] for r in rows),
-          "note": "tracing adds host overhead, so the idle share is higher "
-                  "here than in the untraced run",
-          "top": [{"name": k[:80], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:12]]})
-
-
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -2774,21 +2587,14 @@ def main() -> int:
     ap.add_argument("--scans", type=int, default=200,
                     help="scans of the main-path replay (at least 60)")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="also trace N scans of slice, batched and sharded "
-                         "with torch.profiler")
     ap.add_argument("--long", action="store_true",
-                    help="add the long phases: stevens, d1_cost, scaling, "
-                         "hdl64_noise, hdl64_cpu, and --profile 20 unless "
-                         "given")
+                    help="add the long phases: stevens and scaling")
     args = ap.parse_args()
     if args.scans < 60:
         ap.error("--scans must be at least 60")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device present", file=sys.stderr)
         return 2
-    if args.long and not args.profile:
-        args.profile = 20
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lego_loam_tpu_torch import convert, hostlib, kernels
@@ -2847,7 +2653,7 @@ def main() -> int:
         emit({"phase": "build", "library": os.path.relpath(
                   os.path.join(kernels.build_dir(), "libkernels.so")),
               "seconds": kernels.build_seconds,
-              "sources": list(kernels._SOURCES),
+              "sources": list(kernels.SOURCES),
               "host_library": os.path.relpath(feeder),
               "host_library_seconds": time.time() - t0,
               "resources": kernel_resources(
@@ -2890,12 +2696,7 @@ def main() -> int:
     entries = [label_phase(scans, cfg, dev, floor), knn_entry]
     parity_phase(dev)
     paths = {}
-    paths["slice"], state, packed = slice_phase(scans, gt, times, cfg, dev)
-    if args.profile:
-        p = args.profile
-        profile_phase("slice", lambda: replay_from_packed(
-            state, packed, p, cfg, dev), p)
-    del state, packed
+    paths["slice"] = slice_phase(scans, gt, times, cfg, dev)
     lap = data.pop("lap")
     paths["loop"], state, loop_outs, loop_result = loop_phase(lap, dev)
     resolve_phase(state, dev)
@@ -2923,11 +2724,9 @@ def main() -> int:
     paths["banded"] = banded_phase(drive, dev)
     torch.cuda.empty_cache()
     streams = [tuple(a[:n_batch] for a in bench)] + data.pop("batch")
-    paths["batched"], batched_outs = batched_phase(streams, dev,
-                                                   args.profile)
+    paths["batched"], batched_outs = batched_phase(streams, dev)
     paths["sharded"], paths["sharded_mesh_lap"] = sharded_phase(
-        streams, batched_outs, loop_meta, small_lap, lap, loop_run, dev,
-        args.profile)
+        streams, batched_outs, loop_meta, small_lap, lap, loop_run, dev)
     del loop_run
     del batched_outs
     torch.cuda.empty_cache()
@@ -2936,10 +2735,7 @@ def main() -> int:
         paths["stevens"], paths["stevens_mesh"] = stevens_phase(
             data.pop("stevens"), data.pop("stevens_check"), dev)
         torch.cuda.empty_cache()
-        d1_cost_phase(bench, lap, loop_meta, dev)
         scaling_phase(dev)
-        hdl64_noise_phase(drive, dev)
-        hdl64_cpu_phase(drive)
     del drive, lap, loop_meta
     for e in entries:
         # odometry-only runs no mapping, so no 5-NN search

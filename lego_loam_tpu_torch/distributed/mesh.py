@@ -31,6 +31,9 @@ from ..pipeline.slam import batched_replay
 
 Tensor = torch.Tensor
 
+all_reduce_count = 0     # +1 per torch.distributed.all_reduce of Mesh.psum
+_count_lock = threading.Lock()
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -49,6 +52,23 @@ class Mesh:
     def size(self) -> int:
         """Shards over every process."""
         return len(self.devices) * self.process_count
+
+    def psum(self, parts, home: torch.device) -> Tensor:
+        """The sum over every shard of the mesh: this process's partials
+        (one a local shard) added in shard order on ``home``, then, on a
+        mesh over a process group, all-reduced across its processes (also
+        with one process: the backend's reduction then runs and adds
+        nothing)."""
+        global all_reduce_count
+        total = parts[0].to(home)
+        for p in parts[1:]:
+            total = total + p.to(home)
+        if self.process_group:
+            import torch.distributed as dist
+            dist.all_reduce(total)
+            with _count_lock:
+                all_reduce_count += 1
+        return total
 
 
 def make_mesh(n_devices: Optional[int] = None,

@@ -52,9 +52,9 @@ from ..graph.posegraph import add_factor, empty_graph
 from ..io.npz_io import pack_sequence
 from ..io.synthetic import make_sequence
 from ..pipeline.slam import replay
+from . import mesh as mesh_mod
 from .mesh import Mesh, replay_sharded
-from . import sharded_pgo
-from .sharded_pgo import _psum, optimize_poses_sharded
+from .sharded_pgo import optimize_poses_sharded
 
 TIMEOUT_S = 60.0      # process-group set-up and every collective
 
@@ -86,7 +86,7 @@ def _psum_check(mesh: Mesh) -> float:
     first = mesh.process_index * len(mesh.devices)
     parts = [torch.tensor(float(first + k), device=dev)
              for k, dev in enumerate(mesh.devices)]
-    out = float(_psum(parts, mesh, mesh.devices[0]))
+    out = float(mesh.psum(parts, mesh.devices[0]))
     n = mesh.size
     expected = n * (n - 1) / 2.0
     if out != expected:
@@ -207,7 +207,7 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
         solved, pcg_iters = optimize_poses_sharded(
             poses, n_nodes, g, mesh, gn_iters=6, pcg_iters=64,
             return_iters=True)
-        all_reduces = sharded_pgo.all_reduce_count
+        all_reduces = mesh_mod.all_reduce_count
 
         rows = mesh.size
         store_cfg = store_config(rows)
@@ -215,7 +215,7 @@ def run_worker(coordinator: str, num_processes: int, process_id: int,
         state, mesh_outs = replay(
             *pack_sequence(scans, times, store_cfg, device=device),
             store_cfg, device=device, mesh=mesh)
-        mesh_reduces = sharded_pgo.all_reduce_count - all_reduces
+        mesh_reduces = mesh_mod.all_reduce_count - all_reduces
         # rows written in each shard, gathered in global shard order
         parts = state.mapping.clouds.surf_valid.parts
         written = _gather(torch.stack([p.any(dim=1).sum() for p in parts]),

@@ -6,14 +6,14 @@ each Gauss-Newton / PCG iteration needs exactly ONE reduction per partial
 sum: the gradient, the block diagonal D, the chain sub-diagonal and each
 Hessian-vector product.  Poses stay replicated (6·K floats is tiny next to
 the factor blocks).  The solve is ``graph/posegraph.py``'s own Gauss-Newton
-loop (``_gn_solve``): this module gives it the shards and the reduction.
+loop (``gn_solve``): this module gives it the shards and the reduction.
 
 Counterpart of the JAX package's ``distributed/sharded_pgo.py``, where
 ``shard_map`` runs the body on every device and ``psum`` reduces.  In the
 port a shard is a device with its slice of the factors, and the reduction
-(:func:`_psum`) adds the shards' partials IN SHARD ORDER on the device of
-the poses, then, on a mesh over a process group, all-reduces that sum
-(``torch.distributed.all_reduce``).  The replicated part — the poses, the
+(``distributed/mesh.py::Mesh.psum``) adds the shards' partials IN SHARD
+ORDER on the device of the poses, then, on a mesh over a process group,
+all-reduces that sum (``torch.distributed.all_reduce``).  The replicated part — the poses, the
 preconditioner, the PCG vectors and scalars — is computed once there, not
 once per shard; each shard receives the vectors it multiplies.  Every
 process ends with the same bits (a collective's result is the same on every
@@ -32,12 +32,11 @@ import threading
 
 import torch
 
-from ..graph.posegraph import FactorGraph, _gn_solve
+from ..graph.posegraph import FactorGraph, gn_solve
 
 Tensor = torch.Tensor
 
 solve_count = 0          # +1 per call of optimize_poses_sharded
-all_reduce_count = 0     # +1 per torch.distributed.all_reduce of _psum
 _count_lock = threading.Lock()
 
 
@@ -75,23 +74,6 @@ def _shards(g: FactorGraph, mesh):
     return out
 
 
-def _psum(parts, mesh, home: torch.device) -> Tensor:
-    """The sum over every shard of the mesh: this process's partials added
-    in shard order on ``home``, then, on a mesh over a process group,
-    all-reduced across its processes (also with one process: the backend's
-    reduction then runs and adds nothing)."""
-    global all_reduce_count
-    total = parts[0].to(home)
-    for p in parts[1:]:
-        total = total + p.to(home)
-    if mesh.process_group:
-        import torch.distributed as dist
-        dist.all_reduce(total)
-        with _count_lock:
-            all_reduce_count += 1
-    return total
-
-
 def optimize_poses_sharded(poses: Tensor, node_count: Tensor, g: FactorGraph,
                            mesh, gn_iters: int = 8, pcg_iters: int = 64,
                            return_iters: bool = False):
@@ -104,6 +86,6 @@ def optimize_poses_sharded(poses: Tensor, node_count: Tensor, g: FactorGraph,
     with _count_lock:
         solve_count += 1
     home = poses.device
-    return _gn_solve(poses, node_count, g, _shards(g, mesh),
-                     lambda parts: _psum(parts, mesh, home),
-                     gn_iters, pcg_iters, return_iters)
+    return gn_solve(poses, node_count, g, _shards(g, mesh),
+                    lambda parts: mesh.psum(parts, home),
+                    gn_iters, pcg_iters, return_iters)

@@ -18,7 +18,9 @@ the single-stream sharded mode (``pipeline/slam.py::replay(mesh=…)``), a
 :class:`RowShards` — its rows cut over the shards of a mesh, as the JAX
 package row-shards them (``NamedSharding(mesh, P(axis))``).  Every reader
 goes through :func:`take_rows` and every write through :func:`put_row_`,
-which take both alike; :func:`whole` assembles a block back.
+which take both alike; :func:`whole` assembles a block back.  The blocks
+decide the placement: :func:`mesh_of` reads it, and the loop re-solve
+shards its factors over that mesh.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from ..core import se3
 from ..core.config import LegoLoamConfig
 from ..core.device import DeviceLike, resolve_device
 from ..core.types import Container
-from ..distributed.sharded_pgo import _psum
 from ..match.voxelhash import voxel_downsample, voxel_hash_downsample
 from ..solve.scan2map import MapCloud
 
@@ -106,8 +107,8 @@ def _psum_bits(t: Tensor, mesh, home: torch.device) -> Tensor:
     owner's, exactly: float32 bits summed as int32 (one term plus zeros), a
     bool mask as uint8."""
     if t.dtype == torch.bool:
-        return _psum([t.to(torch.uint8)], mesh, home).to(torch.bool)
-    return _psum([t.view(torch.int32)], mesh, home).view(t.dtype)
+        return mesh.psum([t.to(torch.uint8)], home).to(torch.bool)
+    return mesh.psum([t.view(torch.int32)], home).view(t.dtype)
 
 
 def shard_rows(block: Tensor, mesh) -> RowShards:
@@ -321,6 +322,13 @@ def place_clouds(clouds: KeyframeClouds, mesh) -> KeyframeClouds:
         name: (blk if isinstance(blk, RowShards) and blk.mesh == mesh
                else shard_rows(whole(blk), mesh))
         for name, blk in ((n, getattr(clouds, n)) for n in _BLOCKS)})
+
+
+def mesh_of(clouds: KeyframeClouds):
+    """The mesh the blocks are row-sharded over, or None for whole
+    blocks."""
+    blk = clouds.corner
+    return blk.mesh if isinstance(blk, RowShards) else None
 
 
 def take_row(arr, idx: Tensor) -> Tensor:

@@ -335,8 +335,8 @@ def _pcg(matvec, b: Tensor, M_inv, iters: int, rtol: float = 1e-6):
     return x, it
 
 
-def _gn_solve(poses: Tensor, node_count: Tensor, g: FactorGraph, shards,
-              reduce, gn_iters: int, pcg_iters: int, return_iters: bool):
+def gn_solve(poses: Tensor, node_count: Tensor, g: FactorGraph, shards,
+             reduce, gn_iters: int, pcg_iters: int, return_iters: bool):
     """Batched GN over all poses, the factors split into ``shards``: (device,
     slice of ``g``, its i and j as int64) each.  Every partial sum — the
     gradient, D, the chain sub-diagonal, each H·x — is computed per shard on
@@ -392,5 +392,5 @@ def optimize_poses(poses: Tensor, node_count: Tensor, g: FactorGraph,
     (host ints).  ``distributed/sharded_pgo.py`` runs the same solve with
     the factors sharded over a mesh."""
     shard = (poses.device, g, g.i.to(torch.int64), g.j.to(torch.int64))
-    return _gn_solve(poses, node_count, g, [shard], lambda parts: parts[0],
-                     gn_iters, pcg_iters, return_iters)
+    return gn_solve(poses, node_count, g, [shard], lambda parts: parts[0],
+                    gn_iters, pcg_iters, return_iters)

@@ -18,7 +18,7 @@ import subprocess
 import threading
 from typing import Optional
 
-from .kernels import _CSRC, build_dir
+from .kernels import CSRC, build_dir
 
 _SOURCE = "feeder.cpp"
 _CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -29,7 +29,7 @@ _lib_lock = threading.Lock()
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
-    with open(os.path.join(_CSRC, _SOURCE), "rb") as f:
+    with open(os.path.join(CSRC, _SOURCE), "rb") as f:
         h.update(f.read())
     return h.hexdigest()
 
@@ -49,7 +49,7 @@ def build() -> str:
     cxx = os.environ.get("CXX", "g++")
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     done = subprocess.run(
-        [cxx, *_CXX_FLAGS, "-o", tmp, os.path.join(_CSRC, _SOURCE)],
+        [cxx, *_CXX_FLAGS, "-o", tmp, os.path.join(CSRC, _SOURCE)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=300)
     if done.returncode != 0:

@@ -22,8 +22,8 @@ import threading
 import time
 from typing import Optional
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_SOURCES = ("label.cu", "knn5.cu", "noop.cu")
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = ("label.cu", "knn5.cu", "noop.cu")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 
@@ -36,7 +36,7 @@ build_logs: dict = {}                   # source -> ptxas output of a verbose bu
 def build_dir() -> str:
     return os.environ.get(
         "LEGO_TORCH_BUILD_DIR",
-        os.path.join(os.path.dirname(_CSRC), os.pardir, "build"))
+        os.path.join(os.path.dirname(CSRC), os.pardir, "build"))
 
 
 def _nvcc() -> str:
@@ -52,8 +52,8 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
 
@@ -78,14 +78,14 @@ def build(verbose: bool = False, force: bool = False) -> str:
     nvcc = _nvcc()
     flags = _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     procs, objs = [], []
-    for name in _SOURCES:
+    for name in SOURCES:
         obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *flags, "-c", os.path.join(_CSRC, name), "-o", obj],
+            [nvcc, *flags, "-c", os.path.join(CSRC, name), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate()[0] for p in procs]
-    for name, p, log in zip(_SOURCES, procs, logs):
+    for name, p, log in zip(SOURCES, procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         if verbose and log:

@@ -49,7 +49,7 @@ from ..distributed.sharded_pgo import optimize_poses_sharded
 from ..graph import submap_grid
 from ..graph.keyframes import (CORNER_CAP, OUTLIER_CAP, SCAN2D_CAP,
                                SURF_CAP, KeyframeClouds, KeyframeStore,
-                               empty_clouds, make_row,
+                               empty_clouds, make_row, mesh_of,
                                put_row, submap_of_rows, submap_rows,
                                surrounding, take_row)
 from ..graph.posegraph import (FactorGraph, add_factor, empty_graph,
@@ -289,16 +289,15 @@ def _tail(meta: MappingMeta, pose: Tensor, scan: _Scan, stamp: Tensor,
 
 
 def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
-                 assoc: AssociationOut, cfg: LegoLoamConfig, mesh=None):
+                 assoc: AssociationOut, cfg: LegoLoamConfig):
     """One mapping cycle.
 
-    ``mesh``: optional ``distributed/mesh.py::Mesh``; a loop closure's
-    pose-graph re-solve then runs factor-sharded over it
-    (``distributed/sharded_pgo.py``) instead of on one device.
-
     ``clouds`` (whole or row-sharded blocks, read through
-    ``keyframes.take_rows``) is read-only; the (possibly dropped) inserted
-    keyframe row comes back for the caller to ``apply_row``.  Returns
+    ``keyframes.take_rows``) is read-only; row-sharded blocks run a loop
+    closure's pose-graph re-solve factor-sharded over their mesh
+    (``distributed/sharded_pgo.py``), whole ones on one device.  The
+    (possibly dropped) inserted keyframe row comes back for the caller to
+    ``apply_row``.  Returns
     (new_meta, KeyframeRow, mapped_pose (6,), loop_diag (8,)):
     ``loop_diag`` = [attempted, accepted, fitness, |corr translation|,
     max |corr rotation|, old_idx, latest_idx, +1 re-solved / −1 rejected as
@@ -348,12 +347,12 @@ def mapping_step(meta: MappingMeta, clouds: KeyframeClouds,
                                   count=new.kf_count, clouds=clouds)
             res = detect_and_verify(store, row, assoc.stamp, cfg,
                                     robot_pose=new.aft_mapped)
-        new, loop_diag = _close_loop(res, new, clouds, cfg, mesh)
+        new, loop_diag = _close_loop(res, new, clouds, cfg)
     return graphs.owned((new, row, new.aft_mapped, loop_diag))
 
 
 def _close_loop(res, meta: MappingMeta, clouds: KeyframeClouds,
-                cfg: LegoLoamConfig, mesh=None):
+                cfg: LegoLoamConfig):
     """The rest of a loop attempt (``performLoopClosure`` :767-854 and
     ``correctPoses`` :1481-1511): the diagnostics vector, the loop factor
     (a masked write: added iff the closure was accepted) and, iff accepted
@@ -406,6 +405,7 @@ def _close_loop(res, meta: MappingMeta, clouds: KeyframeClouds,
         dev = meta.kf_pose.device
         latest = res["latest_idx"]
         old_latest = take_row(meta.kf_pose, latest)
+        mesh = mesh_of(clouds)
         solve = (optimize_poses if mesh is None else functools.partial(
             optimize_poses_sharded, mesh=mesh))
         with stage("loop_resolve", dev):

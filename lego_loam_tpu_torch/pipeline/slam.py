@@ -63,23 +63,33 @@ def _check_device(state: SlamState, device: torch.device) -> None:
                          f"asked for")
 
 
-def _mapping_due(scan_index: int, cfg: LegoLoamConfig) -> bool:
+def mapping_due(scan_index: int, cfg: LegoLoamConfig) -> bool:
+    """Whether scan ``scan_index`` (counted from 0) runs a mapping cycle."""
     divider = cfg.mapping.mapping_frequency_divider
     return ((scan_index % divider) == (divider - 1)
             and not cfg.pipeline.odometry_only)
+
+
+def _place(state: SlamState, mesh) -> SlamState:
+    """``state`` with its keyframe cloud blocks row-sharded over ``mesh``
+    (``graph/keyframes.py::place_clouds``: the blocks as they are if they
+    already are)."""
+    clouds = keyframes.place_clouds(state.mapping.clouds, mesh)
+    return state.replace(mapping=state.mapping.replace(clouds=clouds))
 
 
 def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
               device: DeviceLike = None, mesh=None):
     """Process one scan through the full pipeline.
 
-    ``mesh``: optional ``distributed/mesh.py::Mesh`` for the single-stream
-    sharded mode, as in the JAX package: the keyframe cloud blocks are
-    row-sharded over the mesh's shards (placed there if the state's are
-    not; ``graph/keyframes.py::RowShards``), so the submap, loop and
-    rebuild gathers read every shard, and the loop-closure re-solve runs
-    factor-sharded over it (``distributed/sharded_pgo.py``).  The placement
-    changes no result.  Independent multi-stream data parallelism is
+    The state's keyframe blocks decide the single-stream sharded mode, as
+    in the JAX package: row-sharded over a mesh
+    (``graph/keyframes.py::RowShards``), the submap, loop and rebuild
+    gathers read every shard, and the loop-closure re-solve runs
+    factor-sharded over that mesh (``distributed/sharded_pgo.py``).
+    ``mesh``: optional ``distributed/mesh.py::Mesh`` the blocks are placed
+    on first if they are not (:func:`_place`).  The placement changes no
+    result.  Independent multi-stream data parallelism is
     ``distributed/mesh.py::replay_sharded`` instead.
 
     Returns (new_state, outputs) where outputs carries:
@@ -97,26 +107,27 @@ def slam_step(state: SlamState, raw: RawScan, cfg: LegoLoamConfig,
         raise ValueError(f"scan lives on {raw.xyz.device}, state on "
                          f"{state.odo.odom.device}")
 
+    if mesh is not None:
+        state = _place(state, mesh)
+
     with stage("projection", device):
         proj = image_projection(raw, cfg)
     return _step_projected(state, proj, cfg, device,
-                           _mapping_due(state.scan_index, cfg), mesh)
+                           mapping_due(state.scan_index, cfg))
 
 
 def _step_projected(state: SlamState, proj, cfg: LegoLoamConfig,
-                    device: torch.device, run_mapping: bool, mesh=None):
+                    device: torch.device, run_mapping: bool):
     """:func:`slam_step` after stage 1: odometry, the mapping cycle when
     ``run_mapping``, fusion."""
     with stage("odometry", device):
         odo_state, assoc = odometry_mod.odometry_step(state.odo, proj, cfg)
 
     clouds = state.mapping.clouds
-    if mesh is not None:
-        clouds = keyframes.place_clouds(clouds, mesh)
     if run_mapping:
         with stage("mapping", device):
             meta, row, mapped, loop_diag = mapping_mod.mapping_step(
-                state.mapping.meta, clouds, assoc, cfg, mesh=mesh)
+                state.mapping.meta, clouds, assoc, cfg)
             clouds = keyframes.apply_row(clouds, row)
     else:
         meta = state.mapping.meta
@@ -166,16 +177,19 @@ def replay_from(state: SlamState, xyz: Tensor, valid: Tensor, times: Tensor,
 
     Args: batched scans (N, P*3) / (N, P) / (N,) from
     ``io.npz_io.pack_sequence`` on the state's device; ``mesh`` as for
-    :func:`slam_step` (a state whose blocks are whole is placed on it).
+    :func:`slam_step` (the state is placed on it once, before the first
+    scan).
 
     Returns (final_state, outputs dict of stacked per-scan tensors).
     """
     device = resolve_device(device)
+    if mesh is not None:
+        state = _place(state, mesh)
     outs = []
     for i in range(xyz.shape[0]):
         raw = RawScan(xyz=xyz[i].reshape(-1, 3), valid=valid[i],
                       stamp=times[i])
-        state, out = slam_step(state, raw, cfg, device=device, mesh=mesh)
+        state, out = slam_step(state, raw, cfg, device=device)
         outs.append(out)
     if not outs:
         return state, {}
@@ -190,7 +204,7 @@ def replay(xyz: Tensor, valid: Tensor, times: Tensor, cfg: LegoLoamConfig,
     Returns (final_state, outputs dict of (N, …) tensors)."""
     device = resolve_device(device)
     return replay_from(init_state(cfg, device, mesh), xyz, valid, times,
-                       cfg, device=device, mesh=mesh)
+                       cfg, device=device)
 
 
 def batched_replay(xyz: Tensor, valid: Tensor, times: Tensor,
@@ -227,7 +241,7 @@ def batched_replay(xyz: Tensor, valid: Tensor, times: Tensor,
                         stamp=times[b, i]) for b in range(B)]
         with stage("projection", device):
             projs = image_projection_batched(raws, cfg)
-        run_mapping = _mapping_due(i, cfg)
+        run_mapping = mapping_due(i, cfg)
         for b in range(B):
             states[b], out = _step_projected(states[b], projs[b], cfg,
                                              device, run_mapping)

@@ -46,7 +46,7 @@ from .eval.artifacts import (StageTimer, dump_map_artifacts,
 from .eval.metrics import ate
 from .io.native_feeder import DeviceFeed, ScanChannel
 from .io.npz_io import load_sequence, pack_raw_scan, pack_sequence
-from .pipeline.slam import _mapping_due, init_state, replay, slam_step
+from .pipeline.slam import init_state, mapping_due, replay, slam_step
 
 _WARMUP_SCANS = 10
 
@@ -89,7 +89,7 @@ def stream(scans, times, cfg, device: torch.device,
             raw = feed.recv()
             if raw is None:
                 break
-            mapped.append(_mapping_due(state.scan_index, cfg))
+            mapped.append(mapping_due(state.scan_index, cfg))
             state, out = slam_step(state, raw, cfg, device=device)
             out["fused"].cpu()                 # the pose a live user reads
             latency_ms.append(1e3 * (time.perf_counter() - t0))

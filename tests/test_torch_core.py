@@ -217,3 +217,42 @@ def test_port_imports_no_jax():
             text = re.sub(r'"lego_loam_tpu/[\w/]+\.py:\d+"', '""', text)
         for pat in banned:
             assert not pat.search(text), (path, pat.pattern)
+
+
+def test_port_modules_share_no_private_names():
+    """Source scan: no module of the port imports another's ``_private``
+    name or reads one through a name it imported, and ``graph/`` imports
+    nothing from ``distributed/`` (the keyframe store sits below the
+    solvers and the mesh; it reaches a mesh's collectives through the mesh
+    its blocks hold)."""
+    import ast
+    root = os.path.join(REPO, "lego_loam_tpu_torch")
+    found = []
+    for here, _, names in os.walk(root):
+        for name in sorted(n for n in names if n.endswith(".py")):
+            path = os.path.join(here, name)
+            rel = os.path.relpath(path, root)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            imported = set()
+            for node in ast.walk(tree):
+                if not isinstance(node, ast.ImportFrom) or not (
+                        node.level or (node.module or "").startswith(
+                            "lego_loam_tpu_torch")):
+                    continue
+                source = "." * node.level + (node.module or "")
+                for alias in node.names:
+                    if alias.name.startswith("_"):
+                        found.append(f"{rel}: {alias.name} from {source}")
+                    if rel.startswith("graph") and "distributed" in (
+                            f"{source}.{alias.name}"):
+                        found.append(f"{rel}: imports {source}.{alias.name}")
+                    imported.add(alias.asname or alias.name)
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Attribute)
+                        and isinstance(node.value, ast.Name)
+                        and node.value.id in imported
+                        and node.attr.startswith("_")
+                        and not node.attr.startswith("__")):
+                    found.append(f"{rel}: {node.value.id}.{node.attr}")
+    assert not found, found

@@ -228,7 +228,9 @@ def test_replay_with_a_mesh_runs_the_sharded_solve():
     hold sensor-frame clouds, which no pose enters).  Both runs continue
     one state replayed to scan 45, each from its own copy (``replay_from``
     writes the keyframe blocks in place; a whole store is placed on the
-    mesh)."""
+    mesh).  A third copy, placed on the mesh beforehand and replayed
+    without ``mesh``, runs as many sharded solves and equals the meshed
+    run bit for bit: the blocks, not the argument, pick the solver."""
     scans, _, times = make_sequence(50, LAP, seed=33, noise=0.01,
                                     radius=2.2, speed=1.6)
     x, v, t = pack_sequence(scans, times, LAP, device="cpu")
@@ -261,6 +263,22 @@ def test_replay_with_a_mesh_runs_the_sharded_solve():
         assert [p.shape[0] for p in sharded.parts] == [6, 6, 4], name
         assert torch.equal(keyframes.whole(sharded), blk), name
     assert not isinstance(state.mapping.clouds.corner, keyframes.RowShards)
+    # the blocks decide: a state placed on the mesh beforehand and replayed
+    # without ``mesh`` runs the same sharded solves, bit for bit
+    placed = convert.from_numpy_tree("SlamState", tree, device="cpu")
+    placed = placed.replace(mapping=placed.mapping.replace(
+        clouds=keyframes.place_clouds(placed.mapping.clouds, mesh)))
+    assert keyframes.mesh_of(placed.mapping.clouds) == mesh
+    solves = sharded_pgo.solve_count
+    pstate, pouts = tslam.replay_from(placed, x[45:], v[45:], t[45:], LAP,
+                                      device="cpu")
+    assert sharded_pgo.solve_count - solves == plain_resolves
+    for name in mouts:
+        assert torch.equal(pouts[name], mouts[name]), name
+    for name, blk in vars(clouds).items():
+        assert torch.equal(keyframes.whole(getattr(pstate.mapping.clouds,
+                                                   name)),
+                           keyframes.whole(blk)), name
 
 
 def test_host_read_count_is_exact_under_threads():

@@ -68,9 +68,9 @@ def cycles(raws, cfg=CFG, lags=(0,), watch=None):
     current = [0]
     step = mapping.mapping_step
 
-    def recorded(meta, clouds, assoc, cfg, mesh=None):
+    def recorded(meta, clouds, assoc, cfg):
         before = tdevice.sync_count()
-        result = step(meta, clouds, assoc, cfg, mesh=mesh)
+        result = step(meta, clouds, assoc, cfg)
         kept[current[0]].append((result, tdevice.sync_count() - before))
         if watch is not None:
             watch((meta, clouds, assoc), result)
