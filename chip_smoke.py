@@ -27,6 +27,10 @@ processes from the start, beside the kernel phases.  It
    run,
 6. ``resolve``: one pose-graph re-solve and grid rebuild on the loop run's
    final graph, timed; the solve must not raise the graph's residual,
+   ``stage1_graphs``: the loop lap's first 100 scans through stage 1 alone,
+   its two chains replayed from CUDA graphs around the eager K1 launch and
+   called eagerly, bit-equal scan by scan, with the runner's captures and
+   replays, ms a scan and the device time a scan of each side,
    ``stage2_graphs``: the loop lap's first 100 scans through stage 2 alone,
    its chains replayed from CUDA graphs (``core/graphs.py``) and called
    eagerly, bit-equal scan by scan, with the runner's captures and replays,
@@ -1080,6 +1084,107 @@ def loop_phase(lap, dev):
         shapes, icp_iters, with_candidate)
     assert sum(shapes.values()) == launches["knn5"]
     return launches, state, outs, result
+
+
+STAGE1_SCANS = 100
+STAGE1_PROFILED = 20     # the last scans, traced once more on each side
+
+
+def stage1_graphs_phase(lap, dev):
+    """Stage 1 as the main path runs it, its two chains replayed from CUDA
+    graphs (``core/graphs.py``) around the eager K1 launch, against the same
+    chains called eagerly (``graphs.run`` patched to a plain call): the loop
+    lap's first ``STAGE1_SCANS`` scans with ``vlp16()``.  Each scan's
+    ``ProjectionOut`` must be bit-equal (asserted), and K1 called once a
+    scan through ``segmentation.propagate_labels`` on each side (asserted);
+    captures and replays a scan are the runner's counts, each side's ms a
+    scan is timed with a synchronisation before and after, and its device
+    time a scan is the sum of the device events of a ``torch.profiler``
+    trace of the last ``STAGE1_PROFILED`` scans, run again."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lego_loam_tpu_torch.core import graphs
+    from lego_loam_tpu_torch.core.config import vlp16
+    from lego_loam_tpu_torch.core.types import RawScan
+    from lego_loam_tpu_torch.frontend import segmentation
+    from lego_loam_tpu_torch.io.npz_io import pack_sequence
+
+    scans, _, times = lap
+    cfg = vlp16()
+    n = min(STAGE1_SCANS, len(scans))
+    x, v, t = pack_sequence(scans[:n], times[:n], cfg, device=dev)
+    raws = [RawScan(xyz=x[i].reshape(-1, 3), valid=v[i], stamp=t[i])
+            for i in range(n)]
+    sides = {"graphs": contextlib.nullcontext,
+             "eager": lambda: mock.patch.object(
+                 graphs, "run", lambda fn, *args: fn(*args))}
+    seconds = {side: [] for side in sides}
+    k1_calls = dict.fromkeys(sides, 0)
+    label = segmentation.propagate_labels
+    side_now = [None]
+
+    def counting(*args, **kwargs):
+        k1_calls[side_now[0]] += 1
+        return label(*args, **kwargs)
+
+    c0 = graphs.capture_count()
+    captures_by_scan, replays_by_scan, differing = [], [], []
+    with mock.patch.object(segmentation, "propagate_labels", counting):
+        for i, raw in enumerate(raws):
+            got = {}
+            for side, context in sides.items():
+                side_now[0] = side
+                with context():
+                    torch.cuda.synchronize()
+                    c, r = graphs.capture_count(), graphs.replay_count()
+                    t0 = time.perf_counter()
+                    got[side] = segmentation.image_projection(raw, cfg)
+                    torch.cuda.synchronize()
+                    seconds[side].append(time.perf_counter() - t0)
+                    if side == "graphs":
+                        captures_by_scan.append(graphs.capture_count() - c)
+                        replays_by_scan.append(graphs.replay_count() - r)
+            a, b = (tensors_of(got[side]) for side in sides)
+            differing += [f"scan {i} leaf {k}"
+                          for k, (p, q) in enumerate(zip(a, b))
+                          if not torch.equal(p, q)]
+    profiled = {}
+    for side, context in sides.items():
+        torch.cuda.synchronize()
+        with context(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+            for raw in raws[-STAGE1_PROFILED:]:
+                segmentation.image_projection(raw, cfg)
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        profiled[side] = {
+            "device_ms_per_scan": sum(e.time_range.elapsed_us()
+                                      for e in on_device)
+            * 1e-3 / STAGE1_PROFILED,
+            "device_events_per_scan": len(on_device) / STAGE1_PROFILED}
+    warm = 2          # scans left out of the times: captures, first calls
+    report = {"phase": "stage1_graphs", "scans": n,
+              "config": "vlp16() unchanged, image_projection alone",
+              "differing": differing[:20], "n_differing": len(differing),
+              "captures": graphs.capture_count() - c0,
+              "captures_after_scan_1": sum(captures_by_scan[warm:]),
+              "replays_per_scan": sum(replays_by_scan) / n,
+              "k1_calls": k1_calls,
+              "ms_per_scan": {side: 1e3 * statistics.mean(s[warm:])
+                              for side, s in seconds.items()},
+              "ms_per_scan_median": {
+                  side: 1e3 * statistics.median(s[warm:])
+                  for side, s in seconds.items()},
+              "profiled_scans": STAGE1_PROFILED, "profiled": profiled}
+    emit(report)
+    if differing:
+        raise AssertionError(f"stage 1 replayed from graphs differs from the "
+                             f"eager chain: {differing[:5]}")
+    assert k1_calls["graphs"] == k1_calls["eager"] == n, k1_calls
 
 
 STAGE2_SCANS = 100
@@ -2700,6 +2805,7 @@ def main() -> int:
     lap = data.pop("lap")
     paths["loop"], state, loop_outs, loop_result = loop_phase(lap, dev)
     resolve_phase(state, dev)
+    stage1_graphs_phase(lap, dev)
     stage2_graphs_phase(lap, dev)
     stage3_graphs_phase(lap, dev)
     loop_meta = state.mapping.meta

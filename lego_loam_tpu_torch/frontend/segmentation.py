@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..core import graphs
 from ..core.config import LegoLoamConfig
 from ..core.types import ProjectionOut, RangeImage, RawScan, SegmentedCloud
 from .cuda_label import SENTINEL, propagate_labels
@@ -240,11 +241,47 @@ def _segment_labelled(img: RangeImage, labels: Tensor, segmentable: Tensor,
         stamp=raw_stamp)
 
 
+def _project_and_edges(raw: RawScan, cfg: LegoLoamConfig):
+    """Stage 1 up to the labelling, one chain: the range image and the
+    labelling's inputs (:func:`_label_inputs`)."""
+    img = project_scan(raw, cfg)
+    return (img,) + _label_inputs(img, cfg)
+
+
+def _project_and_edges_batched(raws: Sequence[RawScan],
+                               cfg: LegoLoamConfig):
+    """:func:`_project_and_edges` of B scans, one chain: the B images and
+    segmentable masks, and the labelling's inputs stacked (B, V, H)."""
+    parts = [_project_and_edges(raw, cfg) for raw in raws]
+    return ([p[0] for p in parts], [p[1] for p in parts],
+            *(torch.stack([p[k] for p in parts]) for k in (2, 3, 4)))
+
+
+def _segment_labelled_batched(imgs: Sequence[RangeImage], labels: Tensor,
+                              segmentables: Sequence[Tensor],
+                              stamps: Sequence[Tensor], cfg: LegoLoamConfig
+                              ) -> List[ProjectionOut]:
+    """:func:`_segment_labelled` of B images, one chain."""
+    return [_segment_labelled(img, lab, seg, stamp, cfg)
+            for img, lab, seg, stamp in zip(imgs, labels, segmentables,
+                                            stamps)]
+
+
 def image_projection(raw: RawScan, cfg: LegoLoamConfig) -> ProjectionOut:
     """The complete stage-1 entry point (= ``ImageProjection::cloudHandler``,
-    ``imageProjection.cpp:153-174``)."""
-    img = project_scan(raw, cfg)
-    return segment_cloud(img, raw.stamp, cfg)
+    ``imageProjection.cpp:153-174``).
+
+    On the card two chains replay from CUDA graphs (``core/graphs.py``):
+    projection and edge masks, then segment validity, compaction and the 2D
+    scan.  K1 runs eagerly between them, through the module attribute
+    ``propagate_labels``, looked up at each call.  The result is owned: it
+    shares no storage with a graph's buffers."""
+    img, segmentable, labels0, right, down = graphs.run(
+        _project_and_edges, raw, cfg)
+    labels = propagate_labels(labels0, right, down,
+                              max_sweeps=cfg.projection.max_label_iters)
+    return graphs.owned(graphs.run(_segment_labelled, img, labels,
+                                   segmentable, raw.stamp, cfg))
 
 
 def image_projection_batched(raws: Sequence[RawScan], cfg: LegoLoamConfig
@@ -254,11 +291,13 @@ def image_projection_batched(raws: Sequence[RawScan], cfg: LegoLoamConfig
     The labelling runs once for all B range images — on the card ONE kernel
     launch (``frontend/cuda_label.py``); projection, edge masks, segment
     validity and compaction run per stream (they reduce and scatter within
-    one image, and a flattened batch would mix the streams' sums)."""
-    imgs = [project_scan(raw, cfg) for raw in raws]
-    inputs = [_label_inputs(img, cfg) for img in imgs]
-    labels = propagate_labels(
-        *(torch.stack([x[k] for x in inputs]) for k in (1, 2, 3)),
-        max_sweeps=cfg.projection.max_label_iters)
-    return [_segment_labelled(img, lab, x[0], raw.stamp, cfg)
-            for img, lab, x, raw in zip(imgs, labels, inputs, raws)]
+    one image, and a flattened batch would mix the streams' sums), inside
+    the same two chains for all B, so that one replay serves every stream
+    and no stream's results overwrite another's."""
+    imgs, segmentables, labels0, right, down = graphs.run(
+        _project_and_edges_batched, raws, cfg)
+    labels = propagate_labels(labels0, right, down,
+                              max_sweeps=cfg.projection.max_label_iters)
+    return graphs.owned(graphs.run(
+        _segment_labelled_batched, imgs, labels, segmentables,
+        [raw.stamp for raw in raws], cfg))
